@@ -3,7 +3,7 @@
 The reference's app shell is a GLFW window with an orbit camera and ImGui
 stats (``src/main.cpp:70-133`` run loop, ``:376-433`` cursor orbit +
 accumulation reset, ``:357-369`` S = save / ESC = save + exit).  This
-environment is headless, so the TPU-native equivalent renders straight to
+environment is headless, so the equivalent here renders straight to
 the terminal: the accumulating film is drawn as 24-bit ANSI half-block
 cells (two image rows per text row), the camera orbits from the keyboard,
 and the status line carries the same per-frame telemetry the reference

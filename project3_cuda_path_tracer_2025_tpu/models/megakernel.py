@@ -2,11 +2,11 @@
 
 The reference's iteration driver (``pathtrace()``, ``src/pathtrace.cu:639-787``)
 launches a kernel chain per bounce with host round-trips between launches.
-On TPU the entire iteration -- raygen, trace_depth x (intersect + shade),
+Here the entire iteration -- raygen, trace_depth x (intersect + shade),
 final gather -- is a single traced function: the bounce loop is unrolled
 (trace_depth is static, <= ~16) so XLA fuses elementwise work across stage
-boundaries, path state stays in registers/VMEM between bounces, and the film
-never leaves the device.
+boundaries, and the film never leaves the device.  This is the plain XLA
+reference every other path is compared with.
 
 Termination is the bounces mask (dead lanes are write-masked; in a closed
 scene nearly all lanes stay live anyway, cf. the reference's closed-vs-open
@@ -67,119 +67,27 @@ def megakernel_iteration(
         cam, static.width, static.height, depth, cam_u, idx=idx
     )
 
-    from ..ops import fused
-
-    on_tpu = jax.default_backend() != "cpu"
-    force = cfg.fused_bounce == "on"
-    auto = cfg.fused_bounce == "auto" and on_tpu
-    use_fused = (force or auto) and fused.fused_applicable(static, cfg)
-    # Mesh scenes: MXU intersect stays its own kernel, but prim intersect +
-    # merge + shade fuse into one Pallas program (round-2: the XLA around
-    # the intersector cost ~140 ms/frame on the 5k mesh).
-    use_fused_mesh = (
-        (force or auto)
-        and not use_fused
-        and fused.fused_mesh_applicable(static, cfg)
-    )
-    # Textured-prim scenes: surface resolve in XLA, BSDF scatter in Pallas.
-    use_fused_tex = (
-        (force or auto)
-        and not use_fused
-        and not use_fused_mesh
-        and fused.fused_tex_applicable(static, cfg)
-    )
-    fused_interpret = jax.default_backend() == "cpu"
-    # Liveness-pack resort only when the tex sort is active; the sorted
-    # path forces an unrolled loop (below), so ``d`` is then a Python int
-    # and the resort cadence is a compile-time bool.  When inactive the
-    # short-circuit keeps ``d`` out of Python bool context, so a rolled
-    # fori_loop (unroll_bounces=False) still traces.
-    tex_sorted = use_fused_tex and fused.tex_sort_active(cfg)
-    # Cross-bounce (t_lim, key) emission of the fused mesh path's shade
-    # kernel; a mutable cell because the unrolled Python loop closes over
-    # it (the fused mesh path forces unroll=True below).
-    mesh_carry = [None]
-
     def bounce(d, carry):
         paths, alive_counts = carry
         skey = prng.stage_key(ikey, d, 1)
-
-        def draw3():
-            # Unpermuted paths (paths.pixel == idx): the local slice of the
-            # global pixel-order stream.
-            if shard is None:
-                return prng.uniforms(skey, n, 3)
-            return prng.uniforms_at(skey, idx, 3, n_global)
-
-        if use_fused:
-            paths = fused.fused_prim_bounce(
-                static, cfg, paths, draw3(), interpret=fused_interpret
-            )
-        elif use_fused_mesh:
-            # d is a Python int (the bounce loop is unrolled when the fused
-            # mesh path is active); resort every ray_sort_every bounces.
-            # Uniforms are drawn inside, elementwise at each slot's pixel id
-            # (gather-free, permutation-invariant).  Each bounce's shade
-            # kernel emits the NEXT bounce's (prim t_lim, sort key) as
-            # epilogue planes, threaded through ``mesh_carry`` -- the XLA
-            # prim-t and key-build stages then run only at bounce 0.
-            want = d < depth - 1
-            out = fused.fused_mesh_bounce(
-                dev, static, cfg, paths, su_key=skey,
-                interpret=fused_interpret,
-                resort=(
-                    d % max(1, cfg.ray_sort_every) == 0
-                    and (d > 0 or cfg.ray_sort_first_bounce)
-                ),
-                rng_n=n_global,
-                carry=mesh_carry[0],
-                want_carry=want,
-            )
-            if want:
-                paths, mesh_carry[0] = out
-            else:
-                paths = out
-        elif use_fused_tex:
-            # Liveness-pack resort (tex_sort_active) from bounce 1 on (all
-            # camera rays are alive at d=0, so a d=0 sort is pure cost).
-            paths = fused.fused_tex_bounce(
-                dev, static, cfg, paths, su_key=skey,
-                interpret=fused_interpret, rng_n=n_global,
-                resort=(
-                    tex_sorted
-                    and d > 0
-                    and d % max(1, cfg.ray_sort_every) == 0
-                ),
-            )
-        else:
-            isect = intersect_scene(dev, static, paths, cfg)
-            paths = shade_ops.shade(dev, static, paths, isect, draw3(), cfg)
+        # Paths stay in pixel order: the local slice of the global
+        # pixel-order stream.
+        su = (
+            prng.uniforms(skey, n, 3)
+            if shard is None
+            else prng.uniforms_at(skey, idx, 3, n_global)
+        )
+        isect = intersect_scene(dev, static, paths, cfg)
+        paths = shade_ops.shade(dev, static, paths, isect, su, cfg)
         alive_counts = alive_counts.at[d].set(
             jnp.sum(paths.alive.astype(jnp.int32))
         )
         return paths, alive_counts
 
-    # Loop lowering choice: Python unroll maximizes cross-bounce fusion
-    # (fastest at runtime) at the cost of an HLO ~depth x larger; fori_loop
-    # traces the bounce once (fast compiles).  Auto currently unrolls --
-    # the TPU compiler handles both for prim-only scenes, but the
-    # fori(while(...)) nesting of mesh traversal has shown pathological
-    # compile behavior, so mesh scenes stay unrolled too.
+    # Loop lowering choice: Python unroll maximizes cross-bounce fusion at
+    # the cost of an HLO ~depth x larger; fori_loop traces the bounce once
+    # (fast compiles).  Auto unrolls.
     unroll = cfg.unroll_bounces if cfg.unroll_bounces is not None else True
-    if (use_fused_mesh or tex_sorted) and not unroll:
-        # Persistent sorting keys resort on the Python bounce id, which needs
-        # an unrolled loop; an explicit unroll_bounces=False can't be honored
-        # on this path -- say so instead of silently changing compile behavior.
-        import warnings
-
-        warnings.warn(
-            "unroll_bounces=False is overridden to True: the fused mesh and "
-            "liveness-sorted tex paths resort on the Python bounce id and "
-            "require an unrolled loop "
-            "(set fused_bounce='off' to keep a rolled loop).",
-            stacklevel=2,
-        )
-        unroll = True
     carry = (paths, jnp.zeros((depth,), jnp.int32))
     if unroll:
         for d in range(depth):
@@ -188,13 +96,5 @@ def megakernel_iteration(
     else:
         paths, alive_counts = jax.lax.fori_loop(0, depth, bounce, carry)
 
-    # The fused mesh path (and the liveness-packed tex path) keeps paths
-    # persistently sorted; pixel ids ride along, so the film scatter-adds by
-    # pixel (one ray per pixel -> exact).  Sharded: the sort permutes within
-    # the chip's block only, so shifting by the block's first pixel id maps
-    # into the local film exactly.
-    film = film_ops.accumulate(
-        film, paths, permuted=use_fused_mesh or tex_sorted,
-        base=0 if shard is None else idx[0],
-    )
+    film = film_ops.accumulate(film, paths)
     return film, alive_counts

@@ -2,9 +2,9 @@
 
 Mirrors the reference architecture (``src/pathtrace.cu:696-771``): each bounce
 is intersect -> [material sort] -> shade -> [stream compaction], with the
-live count shrinking like the reference's ``num_paths``.  On TPU the
-"compaction" is a stable front-pack permutation (static shapes) and the sort
-is a stable key-sort -- both realized with scans (see ``ops.compaction``).
+live count shrinking like the reference's ``num_paths``.  With static
+shapes the "compaction" is a stable front-pack permutation and the sort is a
+stable key-sort -- both realized with scans (see ``ops.compaction``).
 
 This integrator exists for (a) A/B parity with the reference's toggles
 (images must match the megakernel modulo RNG stream), (b) material-bucketed
@@ -27,10 +27,57 @@ from ..ops import film as film_ops
 from ..ops import shade as shade_ops
 from ..ops.compaction import compact_paths, sort_paths_by_material
 from ..ops.intersect import intersect_scene
+from ..ops.rays import PathState
 from ..scene.camera import CameraState
 from ..scene.device import DeviceScene, SceneStatic
 from ..utils import prng
 from ..utils.vec import Vec3
+
+
+def tier_sizes(n: int, tiers) -> list:
+    """Prefix-tier row counts for an n-ray state: each configured divisor d
+    yields an n/d prefix rounded UP to 256-row units (any multiple works;
+    256 keeps tiers engageable at test-sized ray counts)."""
+    npres = []
+    unit = 256
+    for div in sorted({int(d) for d in tiers}, reverse=True):
+        npre = min(n, ((n // max(1, div) + unit - 1) // unit) * unit)
+        if 0 < npre < n and npre not in npres:
+            npres.append(npre)
+    return npres
+
+
+def run_tiered(paths: PathState, npres: list, body) -> PathState:
+    """Run ``body`` (a whole-bounce function PathState -> PathState) over the
+    smallest configured prefix holding every alive ray: a ``lax.cond`` chain
+    tests the last alive position (rays are front-packed by the previous
+    bounce's compaction) and the dead tail passes through untouched.  Falls
+    back to the full state when the population exceeds every tier."""
+    n = paths.pixel.shape[0]
+    live_pos = jnp.max(
+        jnp.where(paths.alive, jax.lax.iota(jnp.int32, n), -1)
+    )
+    tmap = jax.tree_util.tree_map
+
+    def tier_at(npre):
+        def branch(_):
+            head = tmap(lambda a: a[:npre], paths)
+            out = body(head)
+            tail = tmap(lambda a: a[npre:], paths)
+            return tmap(
+                lambda a, b: jnp.concatenate([a, b], axis=0), out, tail
+            )
+
+        return branch
+
+    chain = lambda _: body(paths)
+    for npre in reversed(sorted(npres)):
+        chain = (
+            lambda _, npre=npre, nxt=chain: jax.lax.cond(
+                live_pos < npre, tier_at(npre), nxt, None
+            )
+        )
+    return chain(None)
 
 
 def wavefront_iteration(
@@ -66,11 +113,9 @@ def wavefront_iteration(
     # Prefix tiers (cfg.bounce_prefix_tiers): compaction packs every alive
     # ray into a front prefix, so the whole bounce -- intersect, sort, RNG,
     # shade, and the compaction itself -- can run over the smallest
-    # configured tier holding the population (same lax.cond chain as the
-    # fused mesh bounce; the dead tail passes through untouched).  Gated on
-    # compaction being enabled: without packing there is no prefix to slice.
-    from ..ops.fused import run_tiered, tier_sizes
-
+    # configured tier holding the population (the dead tail passes through
+    # untouched).  Gated on compaction being enabled: without packing there
+    # is no prefix to slice.
     tiers = cfg.resolved_prefix_tiers()
     npres = tier_sizes(n, tiers) if tiers and cfg.stream_compaction else []
 

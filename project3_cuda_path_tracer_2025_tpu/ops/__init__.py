@@ -5,7 +5,6 @@ from . import (
     film,
     fused,
     intersect,
-    intersect_mxu,
     scan,
     shade,
     texture,
@@ -19,7 +18,6 @@ __all__ = [
     "film",
     "fused",
     "intersect",
-    "intersect_mxu",
     "scan",
     "shade",
     "texture",

@@ -7,18 +7,16 @@ static shapes, so both become *permutations* of the full N-slot SoA state:
 
 * ``compact_paths``: stable front-pack of live rays (prefix-sum ranks) +
   a live count.  Kernels still see N lanes, but trailing lanes are all-dead,
-  which lets blocked/Pallas kernels early-out whole blocks, and the live
-  count reproduces the reference's ``num_paths`` telemetry.
+  which lets the wavefront's prefix tiers skip them, and the live count
+  reproduces the reference's ``num_paths`` telemetry.
 * ``sort_paths_by_material``: stable key sort with terminated rays keyed to a
   sentinel bucket past every real material.
 
-Both are built on an exclusive scan; see ``ops.scan`` for the Pallas
-implementation and the jnp oracle.
+Both are built on an exclusive scan (``ops.scan``).
 """
 
 from __future__ import annotations
 
-import os
 from typing import Tuple
 
 import jax
@@ -29,46 +27,20 @@ from . import scan as scan_ops
 from .rays import Intersections, PathState
 
 
-def permute_path_state(
-    paths: PathState,
-    perm: jnp.ndarray,
-    extra: tuple = (),
-    max_id: int = None,
-    packed: bool = None,
-):
-    """Apply ``perm`` to the whole path state.
-
-    ``packed=True``: ONE packed [N, 9+E+2] f32 row gather (stack + gather
-    + unpack).  ``packed=False``: one [N] gather per field, fused by XLA
-    into their consumers.  Round-3 folklore said packed wins (per-field
-    "~13x more gather launches"), but those stage timings carried a
-    ~22 ms device_sync inside the measurement window: sync-calibrated
-    microbenches (scripts/bench_permute_prims.py) put 12 separate [N]
-    gathers at ~0.8 ms vs ~3.4 ms for the production stack+gather+unpack
-    at 640k rays -- the stack/unpack passes, not the gathers, were the
-    cost.  Default (None) resolves to the env knob PTT_PACKED_PERMUTE
-    so hardware A/Bs need no edits (stays packed until the frame-level
-    per-field A/B lands).
-    Results are identical either way (same rows, same values; the packed
-    path's int VALUE-cast is exact below 2**24 -- ``max_id`` must be the
-    global pixel count under shard_map; past it ints take an i32 gather).
-
-    Returns ``(paths, extras)`` with ``extras`` a tuple matching ``extra``.
-    """
-    if packed is None:
-        packed = os.environ.get("PTT_PACKED_PERMUTE", "1") == "1"
-    if not packed:
-        out = jax.tree_util.tree_map(lambda a: a[perm], paths)
-        return out, tuple(e[perm] for e in extra)
+def _apply_permutation(
+    paths: PathState, perm: jnp.ndarray, max_id: int = None
+) -> PathState:
+    """Apply ``perm`` to the whole path state with ONE packed [N, 11] f32
+    row gather (stack + gather + unpack).  The int VALUE-cast is exact
+    below 2**24 -- ``max_id`` must be the global pixel count under
+    shard_map; past it the ints take an i32 gather."""
     n = paths.pixel.shape[0]
     ints_fit = max(n, max_id or 0) < (1 << 24)
     cols = [
         paths.origin.x, paths.origin.y, paths.origin.z,
         paths.direction.x, paths.direction.y, paths.direction.z,
         paths.color.x, paths.color.y, paths.color.z,
-        *extra,
     ]
-    k = 9 + len(extra)
     if ints_fit:
         cols += [
             paths.pixel.astype(jnp.float32),
@@ -76,30 +48,23 @@ def permute_path_state(
         ]
     m = jnp.stack(cols, axis=1)[perm]
     if ints_fit:
-        pixel = m[:, k].astype(jnp.int32)
-        bounces = m[:, k + 1].astype(jnp.int32)
+        pixel = m[:, 9].astype(jnp.int32)
+        bounces = m[:, 10].astype(jnp.int32)
     else:
         mi = jnp.stack([paths.pixel, paths.bounces], axis=1)[perm]
         pixel, bounces = mi[:, 0], mi[:, 1]
-    out = PathState(
+    return PathState(
         origin=Vec3(m[:, 0], m[:, 1], m[:, 2]),
         direction=Vec3(m[:, 3], m[:, 4], m[:, 5]),
         color=Vec3(m[:, 6], m[:, 7], m[:, 8]),
         pixel=pixel,
         bounces=bounces,
     )
-    return out, tuple(m[:, 9 + i] for i in range(len(extra)))
-
-
-def _apply_permutation(
-    paths: PathState, perm: jnp.ndarray, max_id: int = None
-) -> PathState:
-    return permute_path_state(paths, perm, max_id=max_id)[0]
 
 
 def _apply_permutation_isect(isect: Intersections, perm: jnp.ndarray) -> Intersections:
-    """ONE packed [N, 13] i32 row gather (like ``_apply_permutation``, which
-    measured ~13x fewer gather launches) -- but BITCAST, not value-cast:
+    """ONE packed [N, 13] i32 row gather (like ``_apply_permutation``) --
+    but BITCAST, not value-cast:
     f32 payloads ride as their exact bit patterns in i32 lanes (the int
     gather path neither rounds nor flushes denormals), so the permuted
     values are reproduced bit-for-bit.  The unpacked fields pass through
@@ -139,8 +104,7 @@ def front_pack_permutation(alive: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray
     """Stable partition permutation: live lanes first (original order), dead
     lanes after (original order).  Returns (perm, live_count).
 
-    Built on ``ops.scan.compact_indices`` -- the MXU triangular-matmul scan
-    on TPU, the jnp oracle on CPU/small N (the same layering as the
+    Built on ``ops.scan.compact_indices`` (the same layering as the
     reference, where ``stream_compaction/`` is the scan library and
     ``thrust::stable_partition`` the consumer)."""
     n = alive.shape[0]

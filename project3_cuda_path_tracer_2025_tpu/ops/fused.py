@@ -1,24 +1,25 @@
-"""Fused Pallas bounce kernel for analytic-primitive scenes.
+"""Whole-iteration prim kernel: one Pallas Triton program per spp iteration.
 
-The unfused megakernel already keeps the whole iteration in one jit, but XLA
-materializes hundreds of [N] intermediates per bounce in HBM: measured on
-v5e, a cornell-class iteration is ~23 ms/frame and entirely HBM-bound.  This
-kernel fuses intersect + shade for one bounce into a single Pallas program:
-path state streams HBM->VMEM once per bounce, all intermediates live in
-VMEM, and both the primitive transforms (``GeomConst``) and the material
+For scenes of analytic primitives only (no triangles, no textures), one
+kernel launch runs raygen, ``trace_depth`` x (intersect + shade) and the
+film accumulate.  Each program owns a 1-D block of ``BLOCK`` rays, one ray
+per lane -- the reference's thread-per-path design
+(``generateRayFromCamera`` -> ``computeIntersections`` ->
+``kernShadeMaterialProper`` -> ``finalGather``, ``src/pathtrace.cu``) in a
+single launch, with the path state held in registers from the first bounce
+to the last.  The primitive transforms (``GeomConst``) and the material
 table (``MaterialConst``) are Python constants that fold into the
-instruction stream -- no memory traffic at all for scene data.
+instruction stream, so scene data costs no memory traffic.
 
-The kernel body literally calls the same shape-agnostic building blocks as
-the unfused path (``intersect_scene`` with the statically-skipped mesh
-branch, ``shade.scatter_compose``), so behavior is identical by
-construction; only float re-association differs (Mosaic vs XLA fusion
-order).
+The per-ray uniforms are drawn inside the kernel with the spelled-out
+threefry hash at the same (key, counter) positions as ``prng.uniforms``,
+so the draws are bit-identical to the XLA megakernel's; the kernel body
+calls the same shape-agnostic building blocks (``intersect_scene`` with the
+mesh branch statically skipped, ``shade.scatter_compose``), so the two
+paths differ only by float re-association (tests/test_fused.py).
 
-Applicable when: no triangles, no textures, shader == "full".  (Mesh scenes
-use the MXU intersector; textures need gathers that Mosaic can't lower.)
-RNG uniforms are drawn OUTSIDE (same threefry streams as every other
-integrator path) and streamed in as inputs.
+Per-block alive counts leave the kernel as a small ``[n_blocks, CW]``
+output and are reduced outside it.
 """
 
 from __future__ import annotations
@@ -28,20 +29,28 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ..config import RenderConfig
+from ..scene.camera import CameraState
 from ..scene.device import SceneStatic
 from ..utils import prng
 from ..utils import vec
+from ..utils.mathutil import TWO_PI
 from ..utils.vec import Vec3
 from . import shade as shade_ops
 from .intersect import intersect_scene
 from .rays import PathState
 
-import os
+# Rays per program and warps per program, chosen on the card (PERF.md).
+BLOCK = 128
+NUM_WARPS = 4
 
-BLOCK_ROWS = int(os.environ.get("PTT_BLOCK_ROWS", "64"))  # rays/block = this * 128
+_CAM_WORDS = 16  # position, view, up, right (3 each), pixel_length (2), aperture, focal
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
 def _const_material_params(static: SceneStatic, mid: jnp.ndarray):
@@ -71,105 +80,91 @@ def _const_material_params(static: SceneStatic, mid: jnp.ndarray):
     )
 
 
-def _bounce_kernel(
+def _iteration_kernel(
     static: SceneStatic,
     cfg: RenderConfig,
-    # refs: inputs
-    ox, oy, oz, dx, dy, dz, cr, cg, cb, bn,
-    u0, u1, u2,
-    # refs: outputs
-    o_ox, o_oy, o_oz, o_dx, o_dy, o_dz, o_cr, o_cg, o_cb, o_bn,
+    block: int,
+    cam_ref, key_ref, fr_in, fg_in, fb_in,
+    fr_out, fg_out, fb_out, alive_out,
 ):
+    depth = static.trace_depth
+    n = static.pixel_count
+    idx = pl.program_id(0) * block + jax.lax.iota(jnp.int32, block)
+    in_range = idx < n
+    flat = idx.astype(jnp.uint32)
+
+    def draws(stage, k: int):
+        # prng.uniforms(stage_key, n, k)[j] at this block's pixels.
+        k0, k1 = key_ref[2 * stage], key_ref[2 * stage + 1]
+        return [
+            prng.bits_to_uniform(
+                prng.threefry_bits_inline(k0, k1, jnp.uint32(j * n) + flat)
+            )
+            for j in range(k)
+        ]
+
+    # --- raygen (generateRayFromCamera parity; see ops/camera.py) ---------
+    c = [cam_ref[j] for j in range(_CAM_WORDS)]
+    position = Vec3(c[0], c[1], c[2])
+    view = Vec3(c[3], c[4], c[5])
+    up = Vec3(c[6], c[7], c[8])
+    right = Vec3(c[9], c[10], c[11])
+    plx, ply, aperture, focal = c[12], c[13], c[14], c[15]
+    u = draws(0, 4)
+    x = (idx % static.width).astype(jnp.float32)
+    y = (idx // static.width).astype(jnp.float32)
+    sx = plx * (x + u[0] - static.width * 0.5)
+    sy = ply * (y + u[1] - static.height * 0.5)
+    ray_dir = vec.normalize(view - right * sx - up * sy)
+    focal_point = position + ray_dir * focal
+    r = aperture * jnp.sqrt(u[2])
+    theta = TWO_PI * u[3]
+    origin = Vec3(
+        position.x + r * jnp.cos(theta),
+        position.y + r * jnp.sin(theta),
+        jnp.full((block,), c[2], jnp.float32),
+    )
+    one = jnp.ones((block,), jnp.float32)
     paths = PathState(
-        origin=Vec3(ox[:], oy[:], oz[:]),
-        direction=Vec3(dx[:], dy[:], dz[:]),
-        color=Vec3(cr[:], cg[:], cb[:]),
-        pixel=bn[:],  # placeholder; never read by scatter_compose
-        bounces=bn[:],
+        origin=origin,
+        direction=vec.normalize(focal_point - origin),
+        color=Vec3(one, one, one),
+        pixel=idx,
+        bounces=jnp.where(in_range, depth, 0).astype(jnp.int32),
     )
-    isect = intersect_scene(None, static, paths, cfg)
 
-    mid = jnp.clip(isect.material_id, 0, static.num_materials - 1)
-    albedo, emitt, refl, refr, ior, rough, metal = _const_material_params(
-        static, mid
+    # --- depth x (intersect + shade), state in registers -------------------
+    # A loop, not a Python unroll: the body compiles once, which keeps the
+    # Triton compile short; the bounce index picks its stage key at run time.
+    lobes = shade_ops.lobes_present(static)
+    lane = jax.lax.iota(jnp.int32, alive_out.shape[0])
+
+    def bounce(d, carry):
+        paths, counts = carry
+        isect = intersect_scene(None, static, paths, cfg)
+        mid = jnp.clip(isect.material_id, 0, static.num_materials - 1)
+        albedo, emitt, refl, refr, ior, rough, metal = _const_material_params(
+            static, mid
+        )
+        paths = shade_ops.scatter_compose(
+            cfg, paths, isect, isect.normal,
+            albedo, emitt, refl, refr, ior, rough, metal,
+            draws(1 + d, 3),
+            lobes=lobes,
+        )
+        alive = jnp.sum((paths.bounces > 0).astype(jnp.int32))
+        return paths, jnp.where(lane == d, alive, counts)
+
+    paths, counts = jax.lax.fori_loop(
+        0, depth, bounce, (paths, jnp.zeros(lane.shape, jnp.int32))
     )
-    out = shade_ops.scatter_compose(
-        cfg,
-        paths,
-        isect,
-        isect.normal,  # no bump maps in the fused path
-        albedo,
-        emitt,
-        refl,
-        refr,
-        ior,
-        rough,
-        metal,
-        (u0[:], u1[:], u2[:]),
-        lobes=shade_ops.lobes_present(static),
-    )
-    o_ox[:] = out.origin.x
-    o_oy[:] = out.origin.y
-    o_oz[:] = out.origin.z
-    o_dx[:] = out.direction.x
-    o_dy[:] = out.direction.y
-    o_dz[:] = out.direction.z
-    o_cr[:] = out.color.x
-    o_cg[:] = out.color.y
-    o_cb[:] = out.color.z
-    o_bn[:] = out.bounces
 
-
-@functools.partial(
-    jax.jit, static_argnames=("static", "cfg", "interpret")
-)
-def fused_prim_bounce(
-    static: SceneStatic,
-    cfg: RenderConfig,
-    paths: PathState,
-    uniforms: jnp.ndarray,  # [3, N]
-    interpret: bool = False,
-) -> PathState:
-    n = paths.pixel.shape[0]
-    block = BLOCK_ROWS * 128
-    n_pad = ((n + block - 1) // block) * block
-
-    def prep(x, fill=0):
-        return jnp.pad(x, (0, n_pad - n), constant_values=fill).reshape(-1, 128)
-
-    ins = [
-        prep(paths.origin.x), prep(paths.origin.y), prep(paths.origin.z),
-        prep(paths.direction.x), prep(paths.direction.y),
-        prep(paths.direction.z, fill=1.0),  # padded rays: unit dir, 0 bounces
-        prep(paths.color.x), prep(paths.color.y), prep(paths.color.z),
-        prep(paths.bounces),
-        prep(uniforms[0]), prep(uniforms[1]), prep(uniforms[2]),
-    ]
-    rows = n_pad // 128
-    grid = (rows // BLOCK_ROWS,)
-    bspec_f = pl.BlockSpec((BLOCK_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM)
-
-    kern = functools.partial(_bounce_kernel, static, cfg)
-    shapes = [jax.ShapeDtypeStruct((rows, 128), jnp.float32)] * 9 + [
-        jax.ShapeDtypeStruct((rows, 128), jnp.int32)
-    ]
-    outs = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[bspec_f] * 13,
-        out_specs=tuple([bspec_f] * 10),
-        out_shape=tuple(shapes),
-        interpret=interpret,
-    )(*ins)
-
-    unp = lambda x: x.reshape(-1)[:n]
-    return PathState(
-        origin=Vec3(unp(outs[0]), unp(outs[1]), unp(outs[2])),
-        direction=Vec3(unp(outs[3]), unp(outs[4]), unp(outs[5])),
-        color=Vec3(unp(outs[6]), unp(outs[7]), unp(outs[8])),
-        pixel=paths.pixel,
-        bounces=unp(outs[9]),
-    )
+    # --- film accumulate (finalGather parity; padded lanes masked) --------
+    mask = in_range.astype(jnp.float32)
+    fr_out[...] = fr_in[...] + paths.color.x * mask
+    fg_out[...] = fg_in[...] + paths.color.y * mask
+    fb_out[...] = fb_in[...] + paths.color.z * mask
+    alive_out[...] = counts
 
 
 def fused_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
@@ -180,924 +175,64 @@ def fused_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
     )
 
 
-# ---------------------------------------------------------------------------
-# Fused MESH bounce: the mesh intersection itself runs in the MXU Pallas
-# kernel (ops.intersect_mxu), but round-2 profiling showed the ~140 ms/frame
-# of XLA around it (prim intersect, merge, shade, raygen uniforms) rivals the
-# kernel cost -- the same HBM-intermediate tax the prim-only fused kernel
-# eliminated.  So a mesh bounce becomes a 3-stage pipeline:
-#
-#   1. XLA:    prim nearest-t prepass (t_limit for mesh pruning),
-#              coherence sort + MXU intersect kernel -> (t, tri),
-#              one row-gather attr resolve + winner (u,v) + normal interp
-#   2. Pallas: THIS kernel -- analytic prim intersect (constant-folded),
-#              merge with the mesh hit, BSDF shade -- all VMEM-resident.
-#
-# Applicable when the scene has no textures (texture gathers can't lower in
-# Mosaic); textured scenes keep the unfused path.
-# ---------------------------------------------------------------------------
-
-
-def _mesh_bounce_kernel(
-    prim_static: SceneStatic,  # static with num_triangles=0 (prims only)
-    cfg: RenderConfig,
-    mode: str,  # "plain" | "textured" | "precomputed"
-    rng_n: int,  # 0 = uniforms arrive as input planes; else draw INLINE
-    emit: str,  # "" | "tlim" | "tlim+key": next-bounce epilogue outputs
-    # refs: inputs (mar/mag/mab present unless "plain")
-    *refs,
-):
-    n_out = 10 + (1 if emit else 0) + (1 if emit == "tlim+key" else 0)
-    base = 18 if mode in ("textured", "precomputed") else 15
-    if mode in ("textured", "precomputed"):
-        (ox, oy, oz, dx, dy, dz, cr, cg, cb, bn,
-         mt, mnx, mny, mnz, mmat, mar, mag, mab) = refs[:base]
-    else:
-        (ox, oy, oz, dx, dy, dz, cr, cg, cb, bn,
-         mt, mnx, mny, mnz, mmat) = refs[:base]
-    outs = refs[-n_out:]
-    (o_ox, o_oy, o_oz, o_dx, o_dy, o_dz, o_cr, o_cg, o_cb, o_bn) = outs[:10]
-    if rng_n:
-        # Per-pixel uniforms drawn IN-KERNEL: inline threefry at the same
-        # (key, j*rng_n + pixel) counters as ``prng.uniforms_at`` --
-        # bit-identical bits (tests/test_prng.py), minus a 2.2 ms/bounce
-        # XLA stage and three [N] HBM planes through the kernel.  The key
-        # words live in SMEM: true scalars broadcast into any vector shape
-        # (a VMEM [1, 1] slice at a lane offset cannot -- Mosaic "broadcast
-        # in both sublanes and lanes").
-        px, keyr = refs[base], refs[base + 1]
-        k0 = keyr[0].astype(jnp.uint32)
-        k1 = keyr[1].astype(jnp.uint32)
-        flat = px[:].astype(jnp.uint32)
-        us = [
-            prng.bits_to_uniform(
-                prng.threefry_bits_inline(
-                    k0, k1, jnp.uint32(j * rng_n) + flat
-                )
-            )
-            for j in range(3)
-        ]
-        uni = (us[0], us[1], us[2])
-    else:
-        u0, u1, u2 = refs[base : base + 3]
-        uni = (u0[:], u1[:], u2[:])
-    paths = PathState(
-        origin=Vec3(ox[:], oy[:], oz[:]),
-        direction=Vec3(dx[:], dy[:], dz[:]),
-        color=Vec3(cr[:], cg[:], cb[:]),
-        pixel=bn[:],  # placeholder; never read by scatter_compose
-        bounces=bn[:],
-    )
-    mesh_mat = mmat[:]
-    mn = Vec3(mnx[:], mny[:], mnz[:])
-
-    if mode == "precomputed":
-        # The WHOLE surface (prims + mesh merge + texture/bump) was resolved
-        # in XLA (textured-prim scenes: texture gathers can't lower in
-        # Mosaic, and prim uv/tangents only exist post-intersection).  The
-        # kernel is the scatter/BSDF stage only -- inputs are the final
-        # (t, shading normal, material, albedo) per lane.
-        from .rays import Intersections
-
-        zero = jnp.zeros_like(mt[:])
-        t = mt[:]
-        normal = mn
-        mat = mesh_mat
-        isect_p = Intersections(
-            t=t, normal=normal, material_id=mat, uv_u=zero, uv_v=zero,
-            dpdu=Vec3(zero, zero, zero), dpdv=Vec3(zero, zero, zero),
-            is_triangle=zero > 0.0,  # unused by scatter_compose
-        )
-    else:
-        isect_p = intersect_scene(None, prim_static, paths, cfg)
-
-        # Merge the precomputed mesh hit.  The MXU kernel ran with the prim
-        # nearest t as its t_limit, so tri_hit already implies mesh-closer
-        # (exact prim ties resolve to the prim, as in intersect_scene).
-        tri_hit = mesh_mat >= 0
-        if mode != "textured":
-            # Textured mode passes the final mesh SHADING normal (already
-            # oriented + bump-perturbed in the XLA surface stage).
-            flip = vec.dot(paths.direction, mn) > 0.0
-            mn = vec.where(flip, -mn, mn)
-
-        t = jnp.where(tri_hit, mt[:], isect_p.t)
-        normal = vec.where(tri_hit, mn, isect_p.normal)
-        mat = jnp.where(tri_hit, mesh_mat, isect_p.material_id)
-
-    mid = jnp.clip(mat, 0, prim_static.num_materials - 1)
-    albedo, emitt, refl, refr, ior, rough, metal = _const_material_params(
-        prim_static, mid
-    )
-    if mode == "textured":
-        # Mesh lanes: texture-overridden albedo from the XLA surface stage.
-        # Prim lanes keep const-chain albedo (the fused gate guarantees no
-        # prim material has a texture or bump map).
-        albedo = vec.where(tri_hit, Vec3(mar[:], mag[:], mab[:]), albedo)
-    elif mode == "precomputed":
-        # Every lane's albedo arrives fully resolved (base color + texture
-        # override, prim and mesh uniformly -- src/pathtrace.cu:549-553).
-        albedo = Vec3(mar[:], mag[:], mab[:])
-    isect = isect_p._replace(t=t, normal=normal, material_id=mat)
-    out = shade_ops.scatter_compose(
-        cfg,
-        paths,
-        isect,
-        normal,
-        albedo, emitt, refl, refr, ior, rough, metal,
-        uni,
-        lobes=shade_ops.lobes_present(prim_static),
-    )
-    o_ox[:] = out.origin.x
-    o_oy[:] = out.origin.y
-    o_oz[:] = out.origin.z
-    o_dx[:] = out.direction.x
-    o_dy[:] = out.direction.y
-    o_dz[:] = out.direction.z
-    o_cr[:] = out.color.x
-    o_cg[:] = out.color.y
-    o_cb[:] = out.color.z
-    o_bn[:] = out.bounces
-
-    if emit:
-        # NEXT-bounce epilogue: the scattered rays are known here, so the
-        # next bounce's prim-t prune (and, for small tile counts, its
-        # coherence-sort key) fall out as extra output planes instead of
-        # full-[N] XLA stages.  coherence_key_planes equals the XLA key
-        # exactly (tests/test_intersect_mxu.py); any residual
-        # Mosaic-vs-XLA ulp in t_lim only perturbs a conservative prune
-        # threshold that every traversal shares within the bounce.
-        from .intersect import prim_t_min
-
-        tl_n = prim_t_min(prim_static, cfg, out.origin, out.direction)
-        outs[10][:] = tl_n
-        if emit == "tlim+key":
-            from . import intersect_mxu as mxu
-
-            aabb, cen = refs[base + 2], refs[base + 3]
-            outs[11][:] = mxu.coherence_key_planes(
-                aabb, cen[0], cen[1], cen[2],
-                out.origin.x, out.origin.y, out.origin.z,
-                out.direction.x, out.direction.y, out.direction.z,
-                out.bounces > 0, tl_n,
-            )
-
-
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "prim_static", "cfg", "interpret", "mode", "rng_n", "emit",
-    ),
-)
-def _fused_mesh_shade(
-    prim_static: SceneStatic,
-    cfg: RenderConfig,
-    paths: PathState,
-    mesh_t: jnp.ndarray,
-    mesh_normal: Vec3,
-    mesh_mat: jnp.ndarray,  # i32, -1 = no mesh hit
-    uniforms: jnp.ndarray,  # [3, N] (None with su_key: drawn in-kernel)
-    mesh_albedo: Vec3 = None,  # textured/precomputed: per-lane albedo
-    interpret: bool = False,
-    mode: str = None,  # None = infer plain/textured from mesh_albedo
-    su_key: jax.Array = None,  # draw uniforms INLINE at (key, j*rng_n+pixel)
-    rng_n: int = 0,  # global RNG stream length (su_key mode)
-    emit: str = "",  # "" | "tlim" | "tlim+key" (requires su_key)
-    tile_aabb: jnp.ndarray = None,  # [ct, 8] recentered (emit == tlim+key)
-    center: jnp.ndarray = None,  # [3] scene recenter (emit == tlim+key)
-):
-    n = paths.pixel.shape[0]
-    block = BLOCK_ROWS * 128
-    n_pad = ((n + block - 1) // block) * block
-    if mode is None:
-        mode = "plain" if mesh_albedo is None else "textured"
-    inline_rng = su_key is not None
-    assert not emit or inline_rng, "emit requires the su_key kernel mode"
-
-    def prep(x, fill=0):
-        return jnp.pad(x, (0, n_pad - n), constant_values=fill).reshape(-1, 128)
-
-    ins = [
-        prep(paths.origin.x), prep(paths.origin.y), prep(paths.origin.z),
-        prep(paths.direction.x), prep(paths.direction.y),
-        prep(paths.direction.z, fill=1.0),
-        prep(paths.color.x), prep(paths.color.y), prep(paths.color.z),
-        prep(paths.bounces),
-        prep(mesh_t), prep(mesh_normal.x), prep(mesh_normal.y),
-        prep(mesh_normal.z), prep(mesh_mat, fill=-1),
-    ]
-    if mode in ("textured", "precomputed"):
-        ins += [prep(mesh_albedo.x), prep(mesh_albedo.y), prep(mesh_albedo.z)]
-    rows = n_pad // 128
-    grid = (rows // BLOCK_ROWS,)
-    bspec = pl.BlockSpec((BLOCK_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    in_specs = [bspec] * len(ins)
-    if inline_rng:
-        key_arr = jax.lax.bitcast_convert_type(
-            jax.random.key_data(su_key).astype(jnp.uint32), jnp.int32
-        )
-        ins += [prep(paths.pixel), key_arr]
-        in_specs += [
-            bspec,
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ]
-        if emit == "tlim+key":
-            # Both tile bounds and center ride in SMEM: every bound is
-            # read at a static (row, col) as a true scalar (gated small,
-            # ct*8*4 bytes <= ~0.8 KB).
-            ins += [
-                tile_aabb,
-                center.astype(jnp.float32),
-            ]
-            in_specs += [
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-            ]
-    else:
-        ins += [prep(uniforms[0]), prep(uniforms[1]), prep(uniforms[2])]
-        in_specs += [bspec] * 3
-
-    kern = functools.partial(
-        _mesh_bounce_kernel, prim_static, cfg, mode,
-        rng_n if inline_rng else 0, emit,
-    )
-    shapes = [jax.ShapeDtypeStruct((rows, 128), jnp.float32)] * 9 + [
-        jax.ShapeDtypeStruct((rows, 128), jnp.int32)
-    ]
-    out_specs = [bspec] * 10
-    if emit:
-        shapes += [jax.ShapeDtypeStruct((rows, 128), jnp.float32)]
-        out_specs += [bspec]
-    if emit == "tlim+key":
-        shapes += [jax.ShapeDtypeStruct((rows, 128), jnp.int32)]
-        out_specs += [bspec]
-    outs = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=tuple(out_specs),
-        out_shape=tuple(shapes),
-        interpret=interpret,
-    )(*ins)
-
-    unp = lambda x: x.reshape(-1)[:n]
-    out_paths = PathState(
-        origin=Vec3(unp(outs[0]), unp(outs[1]), unp(outs[2])),
-        direction=Vec3(unp(outs[3]), unp(outs[4]), unp(outs[5])),
-        color=Vec3(unp(outs[6]), unp(outs[7]), unp(outs[8])),
-        pixel=paths.pixel,
-        bounces=unp(outs[9]),
-    )
-    if not emit:
-        return out_paths
-    tlim_n = unp(outs[10])
-    key_n = unp(outs[11]) if emit == "tlim+key" else None
-    return out_paths, (tlim_n, key_n)
-
-
-def fused_mesh_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
-    """The fused mesh bounce needs the MXU intersector.  Textured scenes are
-    supported when the textures live on MESH materials only (texture/bump
-    sampling then runs in the XLA surface stage between the MXU intersect
-    and this kernel; reference behavior ``src/pathtrace.cu:505-519``).  A
-    textured/bumped material on an analytic prim takes ``fused_tex_bounce``
-    instead (prim uv/tangents only exist post-intersection, and texture
-    gathers cannot lower in Mosaic, so the whole surface resolves in XLA
-    and the kernel runs the scatter/BSDF stage)."""
-    return (
-        static.has_triangles
-        and not (static.num_textures > 0 and static.prim_textured)
-        and cfg.shader == "full"
-        and cfg.bvh_acceleration
-        and cfg.mesh_intersector in ("auto", "mxu")
-    )
-
-
-def fused_tex_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
-    """Textured-PRIM scenes (with or without a mesh): full intersect +
-    texture/bump surface resolve in XLA (shared verbatim with the unfused
-    shade), scatter/BSDF in the Pallas kernel."""
-    return (
-        static.num_textures > 0
-        and static.prim_textured
-        and cfg.shader == "full"
-    )
-
-
-def tex_sort_active(cfg: RenderConfig) -> bool:
-    """Whether the textured-prim fused path runs liveness-packed (and so
-    prefix-tiered, and its film must scatter by pixel).  Unlike the mesh
-    path -- where coherence sorting pays for itself through traversal culls
-    -- a pure liveness sort here only buys the tier slicing, so it engages
-    only when tiers are configured."""
-    return bool(cfg.resolved_prefix_tiers()) and (
-        cfg.ray_sorting == "on"
-        or (cfg.ray_sorting == "auto" and jax.default_backend() != "cpu")
-    )
-
-
-def fused_tex_bounce(
-    dev,
-    static: SceneStatic,
-    cfg: RenderConfig,
-    paths: PathState,
-    su_key: jax.Array,
-    interpret: bool = False,
-    rng_n: int = None,
-    resort: bool = True,
-) -> PathState:
-    """One bounce for textured-prim scenes: ``intersect_scene`` (any
-    intersector backend, incl. the internally-sorted MXU chain) and
-    ``textured_surface`` run in XLA exactly as the unfused shade does
-    (reference shades prim and mesh textures uniformly,
-    ``src/pathtrace.cu:549-553``); the BSDF scatter stage -- the largest
-    XLA-intermediate producer after intersection -- runs in the Pallas
-    kernel (``mode="precomputed"``).
-
-    With ``cfg.bounce_prefix_tiers`` set (and sorting enabled), the bounce
-    runs liveness-packed: a stable alive-first permutation (pixel order
-    preserved within each class, so texel locality is unchanged) packs every
-    alive ray into a prefix and the whole stage chain -- intersect, texture
-    resolve, the scatter kernel -- operates on the smallest configured tier
-    holding the population, exactly as the fused mesh bounce does.  The sort
-    runs WITHIN the engaged tier (rays past the tier are dead by the tier
-    predicate), so its cost shrinks with the population.  Bit-identical to
-    the unsorted bounce: every stage is elementwise per ray with pixel-keyed
-    RNG, so only dead-row layout differs, which the by-pixel film scatter
-    erases."""
-    n = paths.pixel.shape[0]
-    rng_n = rng_n or n
-    sort_rays = tex_sort_active(cfg)
-    npres = tier_sizes(n, cfg.resolved_prefix_tiers()) if sort_rays else []
-
-    def body(head):
-        if sort_rays and resort:
-            head = _liveness_pack(head, max_id=rng_n)
-        return _fused_tex_bounce_at(
-            dev, static, cfg, head, su_key, interpret, rng_n
-        )
-
-    if not npres:
-        return body(paths)
-    return run_tiered(paths, npres, body)
-
-
-def _liveness_pack(paths: PathState, max_id=None) -> PathState:
-    """Stable alive-first permutation of the whole path state (one packed
-    row gather; pixel order preserved within the alive / dead classes)."""
-    n = paths.pixel.shape[0]
-    perm = jnp.argsort(jnp.where(paths.alive, 0, 1).astype(jnp.int32))
-    paths, _ = _permute_bounce_state(
-        paths, jnp.zeros((n,), jnp.float32), perm, max_id=max_id
-    )
-    return paths
-
-
-def _fused_tex_bounce_at(
-    dev,
-    static: SceneStatic,
-    cfg: RenderConfig,
-    paths: PathState,
-    su_key: jax.Array,
-    interpret: bool,
-    rng_n: int,
-) -> PathState:
-    """The textured-prim bounce body (possibly over a prefix slice)."""
-    import dataclasses
-
-    isect = intersect_scene(dev, static, paths, cfg)
-    mid = jnp.clip(isect.material_id, 0, static.num_materials - 1)
-    base = vec.select_gather(dev.materials.color, mid)
-    live = (paths.bounces > 0) & (isect.t > 0.0)
-    albedo, shading_normal = shade_ops.textured_surface(
-        dev, static, isect, mid, base, live=live
-    )
-    prim_static = dataclasses.replace(static, num_triangles=0)
-    return _fused_mesh_shade(
-        prim_static, cfg, paths, isect.t, shading_normal, isect.material_id,
-        None, mesh_albedo=albedo, interpret=interpret, mode="precomputed",
-        su_key=su_key, rng_n=rng_n,
-    )
-
-
-def _permute_bounce_state(paths, t_lim, perm, max_id=None):
-    """One packed [N, 12] row gather for the persistent sort: the shared
-    packed-permute (``ops.compaction.permute_path_state``) with t_lim
-    riding as the extra f32 column -- exactly the wavefront compaction's
-    gather plus one column, so the subtle int-ride-along rules live in one
-    place."""
-    from .compaction import permute_path_state
-
-    paths, (t_lim,) = permute_path_state(
-        paths, perm, extra=(t_lim,), max_id=max_id
-    )
-    return paths, t_lim
-
-
-def fused_mesh_bounce(
-    dev,
-    static: SceneStatic,
-    cfg: RenderConfig,
-    paths: PathState,
-    uniforms: jnp.ndarray = None,  # [3, N] pixel-order planes (su_key=None)
-    interpret: bool = False,
-    resort: bool = True,
-    su_key: jax.Array = None,  # stage key: draw per-pixel uniforms in place
-    rng_n: int = None,  # global pixel count for the RNG stream (shard_map:
-    #                     the local block draws from the GLOBAL stream)
-    carry: tuple = None,  # previous bounce's (t_lim, key|None) emission
-    want_carry: bool = False,  # emit this bounce's pair; returns a tuple
-):
-    """One full mesh-scene bounce: prim-t prepass + sorted MXU intersect +
-    attr resolve/interp (XLA) + the fused prim-intersect/merge/shade kernel.
-
-    ``carry``/``want_carry`` thread the shade kernel's next-bounce
-    epilogue (t_lim and, for small tile counts, the coherence-sort key)
-    across bounces: the caller's bounce loop passes each bounce's
-    emission into the next, eliminating the per-bounce XLA prim-t and
-    key-build stages.  With ``want_carry`` the return is
-    ``(paths, (t_lim, key|None))``; the carry rows live in the CURRENT
-    sorted order, and rows past an engaged prefix tier are dead by the
-    tier invariant, so their constant tails (FLT_MAX / the dead sentinel)
-    are exact.
-
-    With ``cfg.bounce_prefix_tiers`` set, the ENTIRE bounce runs over a
-    static prefix of the ray state: the persistent coherence sort (3-level
-    key: live&root < live&prim-only < dead) packs every alive ray into the
-    previous bounce's alive prefix, so a ``lax.cond`` chain picks the
-    smallest configured tier holding every alive ray and all per-bounce
-    stages -- prim prepass, sort key + argsort, permutation apply, RNG,
-    the MXU intersect, attr resolve, the fused shade kernel -- operate on
-    ``[:n/div]`` rows while the dead tail passes through untouched.  Images
-    are bit-identical to the untiered bounce: every stage is elementwise
-    per ray with pixel-keyed RNG, so only dead-row LAYOUT differs, which
-    the by-pixel film scatter erases."""
-    sort_rays = cfg.ray_sorting == "on" or (
-        cfg.ray_sorting == "auto" and jax.default_backend() != "cpu"
-    )
-    n = paths.pixel.shape[0]
-    rng_n = rng_n or n
-    from . import intersect_mxu
-
-    # Pixel-order state can't tier: alive rays are scattered across the
-    # whole pixel range, so the alive-prefix predicate never engages.
-    tiers = (
-        cfg.resolved_prefix_tiers()
-        if sort_rays and cfg.mesh_state_order != "pixel"
-        else ()
-    )
-    npres = tier_sizes(n, tiers)
-    # Bounce tiers COMPOSE with the binned traversal now that the pair
-    # budget is anchored to the unsliced ray count (budget_anchor_n): the
-    # round-3 "tiers+binned" regression (952 vs 659 ms at 200k) was the
-    # slice-local budget overflowing on mid bounces and silently falling
-    # back to the streamed walk every frame.
-    body = lambda head, head_carry: _fused_mesh_bounce_at(
-        dev, static, cfg, head, uniforms, interpret, resort, su_key,
-        rng_n, sort_rays, budget_anchor_n=n,
-        carry=head_carry, want_carry=want_carry,
-    )
-    if not npres:
-        return body(paths, carry)
-    return run_tiered_carry(paths, carry, npres, body, want_carry)
-
-
-def tier_sizes(n: int, tiers) -> list:
-    """Prefix-tier row counts for an n-ray state: each configured divisor d
-    yields an n/d prefix rounded UP to intersect-block units (256 rows --
-    every kernel pads internally so any multiple works, and 256 keeps tiers
-    engageable at test-sized ray counts)."""
-    npres = []
-    unit = 256
-    for div in sorted({int(d) for d in tiers}, reverse=True):
-        npre = min(n, ((n // max(1, div) + unit - 1) // unit) * unit)
-        if 0 < npre < n and npre not in npres:
-            npres.append(npre)
-    return npres
-
-
-def run_tiered_carry(paths, carry, npres, body, want_carry):
-    """``run_tiered`` for carry-threading bodies: slices BOTH the path
-    state and the incoming (t_lim, key|None) carry to the engaged prefix,
-    and rebuilds full-N outputs with constant tails -- exact, because any
-    row outside an engaged tier is dead (the tier predicate), whose t_lim
-    is never read and whose key must be the dead sentinel."""
-    n = paths.pixel.shape[0]
-    live_pos = jnp.max(
-        jnp.where(paths.alive, jax.lax.iota(jnp.int32, n), -1)
-    )
-    tmap = jax.tree_util.tree_map
-    cat = lambda a, b: jnp.concatenate([a, b], axis=0)
-
-    def slice_carry(npre):
-        if carry is None:
-            return None
-        t_lim, key = carry
-        return (t_lim[:npre], None if key is None else key[:npre])
-
-    def tier_at(npre):
-        def branch(_):
-            head = tmap(lambda a: a[:npre], paths)
-            out = body(head, slice_carry(npre))
-            out_p, out_c = out if want_carry else (out, None)
-            tail = tmap(lambda a: a[npre:], paths)
-            full_p = tmap(cat, out_p, tail)
-            if not want_carry:
-                return full_p
-            if out_c is None:
-                return full_p, None
-            tl_n, key_n = out_c
-            full_tl = cat(
-                tl_n, jnp.full((n - npre,), 3.402823466e38, jnp.float32)
-            )
-            full_key = None
-            if key_n is not None:
-                full_key = cat(
-                    key_n,
-                    jnp.full((n - npre,), (1 << 30) + 1, jnp.int32),
-                )
-            return full_p, (full_tl, full_key)
-
-        return branch
-
-    chain = lambda _: body(paths, carry)
-    for npre in reversed(sorted(npres)):
-        chain = (
-            lambda _, npre=npre, nxt=chain: jax.lax.cond(
-                live_pos < npre, tier_at(npre), nxt, None
-            )
-        )
-    return chain(None)
-
-
-def run_tiered(paths: PathState, npres: list, body) -> PathState:
-    """Run ``body`` (a whole-bounce function PathState -> PathState) over the
-    smallest configured prefix holding every alive ray: a ``lax.cond`` chain
-    tests the last alive position (rays are liveness-packed by the caller's
-    persistent sort) and the dead tail passes through untouched.  Falls back
-    to the full state when the population exceeds every tier."""
-    n = paths.pixel.shape[0]
-    live_pos = jnp.max(
-        jnp.where(paths.alive, jax.lax.iota(jnp.int32, n), -1)
-    )
-    tmap = jax.tree_util.tree_map
-
-    def tier_at(npre):
-        def branch(_):
-            head = tmap(lambda a: a[:npre], paths)
-            out = body(head)
-            tail = tmap(lambda a: a[npre:], paths)
-            return tmap(
-                lambda a, b: jnp.concatenate([a, b], axis=0), out, tail
-            )
-
-        return branch
-
-    chain = lambda _: body(paths)
-    for npre in reversed(sorted(npres)):
-        chain = (
-            lambda _, npre=npre, nxt=chain: jax.lax.cond(
-                live_pos < npre, tier_at(npre), nxt, None
-            )
-        )
-    return chain(None)
-
-
-def _fused_mesh_bounce_at(
-    dev,
-    static: SceneStatic,
-    cfg: RenderConfig,
-    paths: PathState,
-    uniforms: jnp.ndarray,
-    interpret: bool,
-    resort: bool,
-    su_key: jax.Array,
-    rng_n: int,
-    sort_rays: bool,
-    budget_anchor_n: int = None,
-    carry: tuple = None,  # (t_lim, key|None) emitted by the PREVIOUS bounce
-    want_carry: bool = False,
-):
-    """The bounce body (possibly over a prefix slice of the ray state).
-
-    With ``carry`` (the previous shade kernel's epilogue outputs, in the
-    current row order), the XLA prim-t prepass -- and, when the key rode
-    along, the whole coherence-key build -- are skipped: the sort becomes
-    one argsort.  ``want_carry`` asks THIS bounce's kernel to emit the
-    next pair; the return is then ``(paths, (t_lim_next, key_next|None))``.
-    """
-    import dataclasses
-
-    from . import intersect_mxu
-    from .intersect import prim_t_min
-
-    ckey = None
-    if carry is not None:
-        t_lim, ckey = carry
-    else:
-        t_lim = prim_t_min(static, cfg, paths.origin, paths.direction)
-
-    # "pixel" state order: the state permute disappears -- the intersector
-    # sorts only its own ray-feature rows by the carried key and scatters
-    # (t, tri) back to pixel order (bit-identical: permutation
-    # invisibility).  See config.mesh_state_order.
-    pixel_order = cfg.mesh_state_order == "pixel" and sort_rays
-    isect_sort_kw = {}
-    if pixel_order:
-        isect_sort_kw = dict(sort_rays=True, sort_key=ckey)
-        if ckey is None:
-            isect_sort_kw["sort_mode"] = (
-                "signature" if cfg.ray_sort_mode == "auto"
-                else cfg.ray_sort_mode
-            )
-    elif sort_rays and resort:
-        if ckey is not None:
-            perm = jnp.argsort(ckey)
-        else:
-            mode = (
-                "signature" if cfg.ray_sort_mode == "auto"
-                else cfg.ray_sort_mode
-            )
-            perm = intersect_mxu.coherence_perm(
-                dev.mxu_mesh, paths.origin, paths.direction, paths.alive,
-                t_lim, cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode=mode,
-            )
-        paths, t_lim = _permute_bounce_state(paths, t_lim, perm, max_id=rng_n)
-    if su_key is not None:
-        # Per-pixel RNG evaluated IN PLACE at each slot's pixel id (a slot's
-        # random stream follows its PIXEL, so any permutation history is
-        # invisible) -- drawn INSIDE the fused shade kernel (inline
-        # threefry, bit-identical to prng.uniforms_at; see
-        # _mesh_bounce_kernel).  rng_n is the GLOBAL stream length
-        # (resolved before any prefix slicing).
-        uniforms = None
-    elif sort_rays:
-        # Pixel-order planes were passed: route them through the (possibly
-        # historical) permutation with one [N, 3] row gather.
-        su = jnp.stack([uniforms[0], uniforms[1], uniforms[2]], axis=1)
-        su = su[paths.pixel]
-        uniforms = jnp.stack([su[:, 0], su[:, 1], su[:, 2]])
-
-    ro, rd = paths.origin, paths.direction
-    mh = intersect_mxu.mesh_intersect_mxu(
-        dev.mxu_mesh,
-        static.num_triangles,
-        static.mxu_padded_tris,
-        ro, rd, paths.alive, t_lim,
-        cfg.baby_epsilon,
-        # persistent mode: state is already in sorted order (sort_rays
-        # False); pixel mode: the intersector sorts internally by the
-        # carried key
-        **{**dict(sort_rays=False), **isect_sort_kw},
-        mesh_bounds=static.mesh_bounds,
-        plan_frustum=intersect_mxu.resolve_plan_frustum(
-            cfg.mxu_plan, sort_rays
-        ),
-        interpret=interpret,
-        compute_uv=False,
-        **intersect_mxu.traversal_flags(
-            cfg.mxu_traversal, static.mxu_padded_tris,
-            binned_tiers=cfg.mxu_binned_tiers,
-            binned_budget_rays=budget_anchor_n,
-        ),
-    )
-    textured = static.num_textures > 0
-    tri_hit = mh.tri >= 0
-    if not textured:
-        at = intersect_mxu.resolve_shade_attributes(
-            dev.mxu_mesh, static.mxu_padded_tris, mh.tri
-        )
-        uu, vv = intersect_mxu.winner_uv_from_geom(
-            at[:, 10:13], at[:, 13:16], at[:, 16:19], mh.tri, ro, rd,
-            cfg.baby_epsilon,
-        )
-        w = 1.0 - uu - vv
-        n0 = Vec3(at[:, 0], at[:, 1], at[:, 2])
-        n1 = Vec3(at[:, 3], at[:, 4], at[:, 5])
-        n2 = Vec3(at[:, 6], at[:, 7], at[:, 8])
-        mesh_normal = vec.normalize(n0 * w + n1 * uu + n2 * vv)
-        # Miss rows are all-zero -> normalize would NaN; mask them out.
-        mesh_normal = vec.where(tri_hit, mesh_normal, Vec3.zeros(uu.shape))
-        mesh_mat = jnp.where(tri_hit, at[:, 9].astype(jnp.int32), -1)
-        mesh_albedo = None
-    else:
-        # Textured mesh surface stage (XLA): full attr rows, interpolated
-        # uv, texture albedo override + bump shading normal via the SAME
-        # helper the unfused shade uses (ops.shade.textured_surface).
-        at = intersect_mxu.resolve_attributes(
-            dev.mxu_mesh, static.mxu_padded_tris, mh.tri,
-            mode=cfg.mxu_attr_resolve,
-        )
-        uu, vv = intersect_mxu.winner_uv_from_geom(
-            at[:, 24:27], at[:, 27:30], at[:, 30:33], mh.tri, ro, rd,
-            cfg.baby_epsilon,
-        )
-        w = 1.0 - uu - vv
-        n0 = Vec3(at[:, 0], at[:, 1], at[:, 2])
-        n1 = Vec3(at[:, 3], at[:, 4], at[:, 5])
-        n2 = Vec3(at[:, 6], at[:, 7], at[:, 8])
-        ng = vec.normalize(n0 * w + n1 * uu + n2 * vv)
-        ng = vec.where(tri_hit, ng, Vec3.zeros(uu.shape))
-        # Orient toward the ray (the in-kernel merge rule), BEFORE bump --
-        # matching the unfused path where isect.normal arrives oriented.
-        ng = vec.where(vec.dot(rd, ng) > 0.0, -ng, ng)
-        mesh_mat = jnp.where(tri_hit, at[:, 21].astype(jnp.int32), -1)
-        uv_u = at[:, 9] * w + at[:, 11] * uu + at[:, 13] * vv
-        uv_v = at[:, 10] * w + at[:, 12] * uu + at[:, 14] * vv
-        from .rays import Intersections
-
-        isect_m = Intersections(
-            t=mh.t,
-            normal=ng,
-            material_id=mesh_mat,
-            uv_u=uv_u,
-            uv_v=uv_v,
-            dpdu=Vec3(at[:, 15], at[:, 16], at[:, 17]),
-            dpdv=Vec3(at[:, 18], at[:, 19], at[:, 20]),
-            is_triangle=tri_hit,
-        )
-        mid_m = jnp.clip(mesh_mat, 0, static.num_materials - 1)
-        base = vec.select_gather(dev.materials.color, mid_m)
-        mesh_albedo, mesh_normal = shade_ops.textured_surface(
-            dev, static, isect_m, mid_m, base,
-            live=tri_hit & paths.alive,
-        )
-        mesh_normal = vec.where(tri_hit, mesh_normal, Vec3.zeros(uu.shape))
-
-    prim_static = dataclasses.replace(static, num_triangles=0)
-    emit = ""
-    if want_carry and su_key is not None:
-        ct = dev.mxu_mesh.tile_aabb.shape[0]
-        emit = (
-            "tlim+key" if ct <= intersect_mxu.KEY_INLINE_MAX_CT else "tlim"
-        )
-    out = _fused_mesh_shade(
-        prim_static, cfg, paths, mh.t, mesh_normal, mesh_mat, uniforms,
-        mesh_albedo=mesh_albedo,
-        interpret=interpret,
-        su_key=su_key,
-        rng_n=rng_n if su_key is not None else 0,
-        emit=emit,
-        tile_aabb=dev.mxu_mesh.tile_aabb if emit == "tlim+key" else None,
-        center=dev.mxu_mesh.center if emit == "tlim+key" else None,
-    )
-    if want_carry:
-        return out if emit else (out, None)
-    return out
-
-
-# ---------------------------------------------------------------------------
-# Whole-iteration fusion: raygen + depth x (intersect + shade) + film
-# accumulate in ONE Pallas program.  Depth-profiling showed the per-bounce
-# kernel leaves ~2 ms/frame of fixed cost (raygen, film, per-dispatch
-# overhead inside the spp fori_loop); this removes all of it.  The camera is
-# baked as static floats (the reference also rebuilds everything on camera
-# change, src/main.cpp:449-453).
-# ---------------------------------------------------------------------------
-
-
-def _iteration_kernel(
-    static: SceneStatic,
-    cfg: RenderConfig,
-    cam: tuple,  # static floats, see camera_statics()
-    n_real: int,
-    # refs: film in (3), uniforms [4 + 3*depth] planes
-    fr_in, fg_in, fb_in,
-    *rest,
-):
-    depth = static.trace_depth
-    n_u = 4 + 3 * depth
-    u = rest[:n_u]
-    fr_out, fg_out, fb_out, alive_out = rest[n_u:]
-
-    (posx, posy, posz, vx, vy, vz, ux, uy, uz, rx, ry, rz,
-     plx, ply, aperture, focal) = cam
-    width = static.width
-
-    i = pl.program_id(0)
-    row = jax.lax.broadcasted_iota(jnp.int32, (BLOCK_ROWS, 128), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (BLOCK_ROWS, 128), 1)
-    idx = (i * BLOCK_ROWS + row) * 128 + lane
-    in_range = idx < n_real
-
-    # --- raygen (generateRayFromCamera parity; see ops/camera.py) ---------
-    x = (idx % width).astype(jnp.float32)
-    y = (idx // width).astype(jnp.float32)
-    sx = plx * (x + u[0][:] - width * 0.5)
-    sy = ply * (y + u[1][:] - static.height * 0.5)
-    pp = Vec3(vx - rx * sx - ux * sy, vy - ry * sx - uy * sy, vz - rz * sx - uz * sy)
-    rdir = vec.normalize(pp)
-    position = Vec3.from_scalar(posx, posy, posz)
-    focal_pt = position + rdir * focal
-    r = aperture * jnp.sqrt(u[2][:])
-    theta = 6.283185307179586 * u[3][:]
-    origin = Vec3(posx + r * jnp.cos(theta), posy + r * jnp.sin(theta),
-                  jnp.full(idx.shape, posz, jnp.float32))
-    direction = vec.normalize(focal_pt - origin)
-
-    one = jnp.ones(idx.shape, jnp.float32)
-    paths = PathState(
-        origin=origin,
-        direction=direction,
-        color=Vec3(one, one, one),
-        pixel=idx,
-        bounces=jnp.where(in_range, depth, 0).astype(jnp.int32),
-    )
-
-    lobes = shade_ops.lobes_present(static)
-    counts = []
-    for d in range(depth):
-        isect = intersect_scene(None, static, paths, cfg)
-        mid = jnp.clip(isect.material_id, 0, static.num_materials - 1)
-        albedo, emitt, refl, refr, ior, rough, metal = _const_material_params(
-            static, mid
-        )
-        paths = shade_ops.scatter_compose(
-            cfg, paths, isect, isect.normal,
-            albedo, emitt, refl, refr, ior, rough, metal,
-            (u[4 + 3 * d][:], u[5 + 3 * d][:], u[6 + 3 * d][:]),
-            lobes=lobes,
-        )
-        counts.append(jnp.sum((paths.bounces > 0).astype(jnp.int32)))
-
-    # --- film accumulate (finalGather parity; padded lanes masked) --------
-    mask = in_range.astype(jnp.float32)
-    fr_out[:] = fr_in[:] + paths.color.x * mask
-    fg_out[:] = fg_in[:] + paths.color.y * mask
-    fb_out[:] = fb_in[:] + paths.color.z * mask
-    # (8, 128) tile to satisfy the min sublane tiling; data in row 0 only.
-    # Built with iota masks -- Mosaic has no scatter.
-    rows8 = jax.lax.broadcasted_iota(jnp.int32, (8, 128), 0)
-    lanes8 = jax.lax.broadcasted_iota(jnp.int32, (8, 128), 1)
-    block_counts = jnp.zeros((8, 128), jnp.int32)
-    for d, cnt in enumerate(counts):
-        block_counts = block_counts + jnp.where(
-            (rows8 == 0) & (lanes8 == d), cnt, 0
-        )
-    alive_out[:] = block_counts
-
-
-def camera_statics(cam_state) -> tuple:
-    """CameraState (dynamic arrays) -> hashable static float tuple."""
-    import numpy as np
-
-    f = lambda a: float(np.asarray(a))
-    return (
-        f(cam_state.position[0]), f(cam_state.position[1]), f(cam_state.position[2]),
-        f(cam_state.view[0]), f(cam_state.view[1]), f(cam_state.view[2]),
-        f(cam_state.up[0]), f(cam_state.up[1]), f(cam_state.up[2]),
-        f(cam_state.right[0]), f(cam_state.right[1]), f(cam_state.right[2]),
-        f(cam_state.pixel_length[0]), f(cam_state.pixel_length[1]),
-        f(cam_state.aperture), f(cam_state.focal_dist),
-    )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("static", "cfg", "cam", "interpret")
+    static_argnames=("static", "cfg", "interpret", "block", "num_warps"),
+    donate_argnums=(3,),
 )
 def fused_prim_iteration(
     static: SceneStatic,
     cfg: RenderConfig,
-    cam: tuple,
-    film,  # Vec3 of [N]
-    uniform_planes,  # tuple of [N] arrays: 4 camera + 3*depth shade planes
+    cam: CameraState,
+    film: Vec3,  # [N] planes, updated in place
+    iteration: jnp.ndarray,  # traced scalar (1-based, like the reference)
+    base_key: jax.Array,
     interpret: bool = False,
+    block: int = BLOCK,
+    num_warps: int = NUM_WARPS,
 ):
-    """One full spp iteration in a single Pallas program.
+    """One full spp iteration in one kernel launch.
 
     Returns (film', alive_counts[depth])."""
-    n = film.x.shape[0]
-    block = BLOCK_ROWS * 128
-    n_pad = ((n + block - 1) // block) * block
-
-    def prep(x):
-        return jnp.pad(x, (0, n_pad - n)).reshape(-1, 128)
-
-    ins = [prep(film.x), prep(film.y), prep(film.z)] + [
-        prep(p) for p in uniform_planes
+    n = static.pixel_count
+    depth = static.trace_depth
+    ikey = prng.iteration_key(base_key, iteration)
+    stage_keys = [prng.stage_key(ikey, 0, 0)] + [
+        prng.stage_key(ikey, d, 1) for d in range(depth)
     ]
-    rows = n_pad // 128
-    grid = (rows // BLOCK_ROWS,)
-    bspec = pl.BlockSpec((BLOCK_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    cspec = pl.BlockSpec((8, 128), lambda i: (i, 0), memory_space=pltpu.VMEM)
+    keys = jnp.concatenate(
+        [jax.random.key_data(k).astype(jnp.uint32) for k in stage_keys]
+    )
+    kw = _pow2_at_least(keys.shape[0])
+    keys = jnp.pad(keys, (0, kw - keys.shape[0]))
+    cam_vec = jnp.concatenate([
+        cam.position, cam.view, cam.up, cam.right, cam.pixel_length,
+        cam.aperture[None], cam.focal_dist[None],
+    ]).astype(jnp.float32)
 
-    kern = functools.partial(_iteration_kernel, static, cfg, cam, n)
-    n_blocks = grid[0]
+    n_blocks = -(-n // block)
+    n_pad = n_blocks * block
+    cw = _pow2_at_least(depth)
+    planes = [jnp.pad(p, (0, n_pad - n)) for p in film]
+    full = lambda size: pl.BlockSpec((size,), lambda i: (0,))
+    blk = pl.BlockSpec((block,), lambda i: (i,))
+    f32 = jax.ShapeDtypeStruct((n_pad,), jnp.float32)
     fr, fg, fb, alive = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[bspec] * len(ins),
-        out_specs=(bspec, bspec, bspec, cspec),
+        functools.partial(_iteration_kernel, static, cfg, block),
+        grid=(n_blocks,),
+        in_specs=[full(_CAM_WORDS), full(kw), blk, blk, blk],
+        out_specs=(blk, blk, blk, pl.BlockSpec((cw,), lambda i: (i,))),
         out_shape=(
-            jax.ShapeDtypeStruct((rows, 128), jnp.float32),
-            jax.ShapeDtypeStruct((rows, 128), jnp.float32),
-            jax.ShapeDtypeStruct((rows, 128), jnp.float32),
-            jax.ShapeDtypeStruct((n_blocks * 8, 128), jnp.int32),
+            f32, f32, f32,
+            jax.ShapeDtypeStruct((n_blocks * cw,), jnp.int32),
         ),
+        input_output_aliases={2: 0, 3: 1, 4: 2},
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=num_warps),
         interpret=interpret,
-    )(*ins)
+        name="fused_prim_iteration",
+    )(cam_vec, keys, *planes)
 
-    unp = lambda a: a.reshape(-1)[:n]
-    film_out = Vec3(unp(fr), unp(fg), unp(fb))
-    alive_counts = jnp.sum(alive, axis=0)[: static.trace_depth]
+    film_out = Vec3(fr[:n], fg[:n], fb[:n])
+    alive_counts = jnp.sum(alive.reshape(n_blocks, cw), axis=0)[:depth]
     return film_out, alive_counts

@@ -148,24 +148,6 @@ def triangle_intersection(
     return hit, t, u, v
 
 
-# (Round 1 capped the MXU intersector at ~32k tris because its feature table
-# had to fit VMEM whole; the chunked multi-call chain in ops.intersect_mxu
-# now keeps each chunk VMEM-resident, so any triangle count runs.)
-
-
-def prim_t_min(static: SceneStatic, cfg: RenderConfig, ro: Vec3, rd: Vec3):
-    """Nearest analytic-prim t per ray (FLT_MAX = none): the mesh kernel's
-    t_limit prune.  Normal/point math DCEs away -- only t survives."""
-    t_min = jnp.full(ro.x.shape, FLT_MAX)
-    for g in static.geoms:
-        if g.gtype == int(GeomType.CUBE):
-            t, _, _ = box_intersection(g, ro, rd, cfg.ray_advance_epsilon)
-        else:
-            t, _, _ = sphere_intersection(g, ro, rd, cfg.ray_advance_epsilon)
-        t_min = jnp.minimum(t_min, jnp.where(t > 0.0, t, FLT_MAX))
-    return t_min
-
-
 class MeshHit(NamedTuple):
     t: jnp.ndarray  # best triangle t (FLT_MAX when none)
     tri: jnp.ndarray  # i32 best triangle index (-1 = none)
@@ -181,9 +163,22 @@ def mesh_intersect_bvh(
     active: jnp.ndarray,
     t_limit: jnp.ndarray,
     baby_eps: float,
-    unroll_leaf: bool = True,  # kept for config compatibility; leaf tests are vectorized
 ) -> MeshHit:
-    """Threaded-BVH closest-hit over all rays.
+    """Threaded-BVH closest-hit over all rays (``bvh_walk`` without its
+    step count)."""
+    return bvh_walk(dev, static, ro, rd, active, t_limit, baby_eps)[0]
+
+
+def bvh_walk(
+    dev: DeviceScene,
+    static: SceneStatic,
+    ro: Vec3,
+    rd: Vec3,
+    active: jnp.ndarray,
+    t_limit: jnp.ndarray,
+    baby_eps: float,
+) -> tuple[MeshHit, jnp.ndarray]:
+    """Threaded-BVH closest-hit over all rays; returns (hit, loop steps).
 
     Traversal state per ray is one int32 node cursor that only moves forward
     in its direction octant's pre-order layout (near children first, see
@@ -193,7 +188,7 @@ def mesh_intersect_bvh(
     math, keeping per-step dispatch cost flat.  Closest-hit pruning on AABB
     entry distance plus the ordered layout keeps the step count near the
     per-ray optimum; the loop exits when every ray's cursor reaches
-    ``num_nodes``.
+    ``num_nodes``, so the loop step count is the slowest ray's.
 
     Semantics identical to ``bvhMeshIntersectionTest``
     (src/intersections.cu:148-234): same Moller-Trumbore epsilons, same
@@ -225,11 +220,11 @@ def mesh_intersect_bvh(
     karange = jnp.arange(k_leaf, dtype=jnp.int32)
 
     def cond(state):
-        node, _ = state
+        node, _, _ = state
         return jnp.any(node < m)
 
     def body(state):
-        node, best = state
+        node, best, steps = state
         live = node < m
         nidx = jnp.clip(node, 0, m - 1)
 
@@ -300,10 +295,12 @@ def mesh_intersect_bvh(
         descend = live & aabb_hit & ~is_leaf
         nxt = jnp.where(descend, nidx + 1, miss_link)
         node = jnp.where(live, nxt, node)
-        return node, best
+        return node, best, steps + 1
 
-    _, best = jax.lax.while_loop(cond, body, (node0, best0))
-    return best
+    _, best, steps = jax.lax.while_loop(
+        cond, body, (node0, best0, jnp.int32(0))
+    )
+    return best, steps
 
 
 def mesh_intersect_brute(
@@ -318,13 +315,12 @@ def mesh_intersect_brute(
     """Brute-force all-triangles sweep: the A/B oracle for BVH correctness
     (reference ``NAIVE_MESH_LOADING`` path, ``src/pathtrace.cu:365-395``).
 
-    TPU-native layout: triangles stream through the loop in packed [K, 9]
-    blocks -- ONE contiguous ``dynamic_slice`` per step (no per-ray gathers),
-    then K scalar-broadcast Moller-Trumbore tests unrolled inside the body so
-    XLA fuses each block into a handful of [N]-wide elementwise kernels.
-    Program size is bounded by ceil(T/K) loop steps regardless of mesh size
-    (the per-triangle fori_loop formulation built T sequential gather steps,
-    which crawled and could fault the remote backend on big programs).
+    Triangles stream through the loop in packed [K, 9] blocks -- ONE
+    contiguous ``dynamic_slice`` per step (no per-ray gathers), then K
+    scalar-broadcast Moller-Trumbore tests unrolled inside the body so XLA
+    fuses each block into a handful of [N]-wide elementwise kernels.
+    Program size and memory are bounded by ceil(T/K) loop steps regardless
+    of mesh size.
     Winner semantics are exactly the reference's sequential rule: strictly
     closer wins, so the lowest triangle index wins ties -- the unrolled
     in-order updates preserve this bit-for-bit."""
@@ -380,7 +376,7 @@ def intersect_scene(
     """Nearest-hit over analytic prims + mesh, with the reference's final
     normal flip toward the ray (``src/pathtrace.cu:423-446``)."""
     ro, rd = paths.origin, paths.direction
-    shape = ro.x.shape  # shape-agnostic: [N] at top level, [R, 128] in-kernel
+    shape = ro.x.shape  # shape-agnostic: [N] at top level, [block] in-kernel
     zero = jnp.zeros(shape, jnp.float32)
 
     t_min = jnp.full(shape, FLT_MAX)
@@ -407,45 +403,9 @@ def intersect_scene(
 
     if static.has_triangles:
         active = paths.alive
-        mode = cfg.mesh_intersector
-        if not cfg.bvh_acceleration and mode in ("auto", "threaded"):
-            mode = "brute"
-        if mode == "auto":
-            mode = "mxu" if jax.default_backend() != "cpu" else "threaded"
-
-        if mode == "mxu":
-            from . import intersect_mxu
-
-            sort_rays = cfg.ray_sorting == "on" or (
-                cfg.ray_sorting == "auto" and jax.default_backend() != "cpu"
-            )
-            mh = intersect_mxu.mesh_intersect_mxu(
-                dev.mxu_mesh,
-                static.num_triangles,
-                static.mxu_padded_tris,
-                ro,
-                rd,
-                active,
-                t_min,
-                cfg.baby_epsilon,
-                sort_rays=sort_rays,
-                sort_bits=cfg.ray_sort_bits,
-                sort_dir_bits=cfg.ray_sort_dir_bits,
-                mesh_bounds=static.mesh_bounds,
-                plan_frustum=intersect_mxu.resolve_plan_frustum(
-                    cfg.mxu_plan, sort_rays
-                ),
-                interpret=jax.default_backend() == "cpu",
-                compute_uv=False,  # derived below from the resolved rows
-                **intersect_mxu.traversal_flags(
-                    cfg.mxu_traversal, static.mxu_padded_tris,
-                    binned_tiers=cfg.mxu_binned_tiers,
-                ),
-            )
-        elif mode == "threaded":
+        if cfg.resolved_mesh_intersector() == "threaded":
             mh = mesh_intersect_bvh(
-                dev, static, ro, rd, active, t_min, cfg.baby_epsilon,
-                unroll_leaf=cfg.unroll_leaf,
+                dev, static, ro, rd, active, t_min, cfg.baby_epsilon
             )
         else:
             mh = mesh_intersect_brute(
@@ -453,45 +413,21 @@ def intersect_scene(
             )
         tri_hit = mh.tri >= 0
 
-        if mode == "mxu":
-            # One row-gather resolves attributes AND the winner geometry for
-            # the (u, v) recompute (the kernel tracks only t + tri).
-            from . import intersect_mxu
-
-            at = intersect_mxu.resolve_attributes(
-                dev.mxu_mesh, static.mxu_padded_tris, mh.tri,
-                mode=cfg.mxu_attr_resolve,
-            )
-            uu, vv = intersect_mxu.winner_uv(
-                dev.mxu_mesh, static.mxu_padded_tris, mh.tri, ro, rd,
-                cfg.baby_epsilon, attr_rows=at,
-            )
-            mh = mh._replace(u=uu, v=vv)
-            w = 1.0 - mh.u - mh.v
-            n0 = Vec3(at[:, 0], at[:, 1], at[:, 2])
-            n1 = Vec3(at[:, 3], at[:, 4], at[:, 5])
-            n2 = Vec3(at[:, 6], at[:, 7], at[:, 8])
-            tri_uv_u = at[:, 9] * w + at[:, 11] * mh.u + at[:, 13] * mh.v
-            tri_uv_v = at[:, 10] * w + at[:, 12] * mh.u + at[:, 14] * mh.v
-            tri_dpdu = Vec3(at[:, 15], at[:, 16], at[:, 17])
-            tri_dpdv = Vec3(at[:, 18], at[:, 19], at[:, 20])
-            tri_mat = at[:, 21].astype(jnp.int32)
-        else:
-            w = 1.0 - mh.u - mh.v
-            tidx = jnp.clip(mh.tri, 0, static.num_triangles - 1)
-            tris = dev.triangles
-            n0 = vec.select_gather(tris.n0, tidx)
-            n1 = vec.select_gather(tris.n1, tidx)
-            n2 = vec.select_gather(tris.n2, tidx)
-            tri_uv_u = (
-                tris.uv0u[tidx] * w + tris.uv1u[tidx] * mh.u + tris.uv2u[tidx] * mh.v
-            )
-            tri_uv_v = (
-                tris.uv0v[tidx] * w + tris.uv1v[tidx] * mh.u + tris.uv2v[tidx] * mh.v
-            )
-            tri_dpdu = vec.select_gather(tris.dpdu, tidx)
-            tri_dpdv = vec.select_gather(tris.dpdv, tidx)
-            tri_mat = tris.material_id[tidx]
+        w = 1.0 - mh.u - mh.v
+        tidx = jnp.clip(mh.tri, 0, static.num_triangles - 1)
+        tris = dev.triangles
+        n0 = vec.select_gather(tris.n0, tidx)
+        n1 = vec.select_gather(tris.n1, tidx)
+        n2 = vec.select_gather(tris.n2, tidx)
+        tri_uv_u = (
+            tris.uv0u[tidx] * w + tris.uv1u[tidx] * mh.u + tris.uv2u[tidx] * mh.v
+        )
+        tri_uv_v = (
+            tris.uv0v[tidx] * w + tris.uv1v[tidx] * mh.u + tris.uv2v[tidx] * mh.v
+        )
+        tri_dpdu = vec.select_gather(tris.dpdu, tidx)
+        tri_dpdv = vec.select_gather(tris.dpdv, tidx)
+        tri_mat = tris.material_id[tidx]
 
         tri_normal = vec.normalize(n0 * w + n1 * mh.u + n2 * mh.v)
         t_min = jnp.where(tri_hit, mh.t, t_min)

@@ -1,6 +1,6 @@
 """Wavefront path state (SoA pytrees).
 
-TPU-native counterparts of ``PathSegment`` (``src/sceneStructs.h:128-134``)
+Counterparts of ``PathSegment`` (``src/sceneStructs.h:128-134``)
 and ``ShadeableIntersection`` (``:147-157``): every field is a flat ``[N]``
 array (``Vec3`` = three ``[N]`` arrays), N = W*H path slots that persist for
 the whole iteration (termination is the ``bounces`` mask, not a shrinking

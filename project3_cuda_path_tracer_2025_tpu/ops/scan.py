@@ -1,45 +1,29 @@
-"""Scan / compact / radix-sort primitives (Pallas + jnp oracles).
+"""Scan / compact / radix-sort primitives.
 
-TPU-native rebuild of the reference's GPU-primitives library
-(``stream_compaction/``: Blelloch scan ``efficient.cu:18-105``, compact =
-map-to-bool -> scan -> scatter ``efficient.cu:163-224``, 32-pass LSB radix
-sort ``radix.cu:20-133``).  Like the reference's library these are
-first-class, independently-tested components; the render loop's compaction
-(``ops.compaction``) is built on the same scan.
-
-The Pallas scan does the work on the MXU: an inclusive scan along 128 lanes
-is a matmul with an upper-triangular ones matrix, so a [128, 128] f32 tile is
-scanned by one 128x128x128 matmul -- with row totals hierarchically scanned
-and re-broadcast.  (A work-efficient Blelloch tree like the reference's would
-be *slower* on TPU: element-addressed up/down sweeps fight the vector unit,
-while the triangular matmul rides the systolic array at full rate.  Same
-O(N) bytes, better silicon fit -- int32 inputs are scanned in f32, exact up
-to 2^24 which covers any film-sized N.)
+Rebuild of the reference's GPU-primitives library (``stream_compaction/``:
+Blelloch scan ``efficient.cu:18-105``, compact = map-to-bool -> scan ->
+scatter ``efficient.cu:163-224``, 32-pass LSB radix sort
+``radix.cu:20-133``).  Like the reference's library these are first-class,
+independently-tested components; the render loop's compaction
+(``ops.compaction``) is built on the same scan.  The production scan is
+``jnp.cumsum``, which XLA lowers to its own parallel scan on the GPU.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-LANES = 128
-SUBLANES = 128  # rows per Pallas tile
-TILE = LANES * SUBLANES
 
 
 # ---------------------------------------------------------------------------
-# jnp oracles (also the small-N fallback)
+# Scans
 # ---------------------------------------------------------------------------
 
-def exclusive_scan_jnp(x: jnp.ndarray) -> jnp.ndarray:
+def exclusive_scan(x: jnp.ndarray) -> jnp.ndarray:
+    """Exclusive prefix sum (``StreamCompaction::Efficient::scan`` parity)."""
     return jnp.cumsum(x) - x
 
 
-def inclusive_scan_jnp(x: jnp.ndarray) -> jnp.ndarray:
+def inclusive_scan(x: jnp.ndarray) -> jnp.ndarray:
     return jnp.cumsum(x)
 
 
@@ -49,10 +33,9 @@ def inclusive_scan_naive(x: jnp.ndarray) -> jnp.ndarray:
 
     The third scan flavor of the reference's library
     (``stream_compaction/naive.cu:17-74``) next to the Blelloch tree and the
-    thrust wrapper.  On TPU each pass is one full-width vector shift + add
-    (XLA ``pad``/``slice`` fuse into the add), so the O(n log n) work rides
-    the VPU at bandwidth rate -- fine as an oracle, dominated by the MXU
-    triangular-matmul scan for production just as ``naive`` loses to
+    thrust wrapper.  Each pass is one full-width shift + add (XLA fuses the
+    ``pad``/``slice`` into the add) -- fine as an oracle; the O(n log n)
+    work loses to the production scan just as ``naive`` loses to
     ``efficient`` in the reference's own benchmarks."""
     n = x.shape[0]
     offset = 1
@@ -69,112 +52,27 @@ def exclusive_scan_naive(x: jnp.ndarray) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Pallas MXU scan
-# ---------------------------------------------------------------------------
-
-def _scan_tile_kernel(x_ref, lane_ref, tot_ref):
-    """Per-tile inclusive lane scan via triangular matmul + row totals."""
-    x = x_ref[:]  # [SUBLANES, LANES] f32
-    row = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 1)
-    tri = (row <= col).astype(jnp.float32)  # upper-triangular incl. diagonal
-    scan = jnp.dot(x, tri, preferred_element_type=jnp.float32)
-    lane_ref[:] = scan
-    tot_ref[:] = scan[:, LANES - 1 :]
-
-
-@functools.partial(jax.jit, static_argnames=("inclusive",))
-def _scan_pallas_f32(x: jnp.ndarray, inclusive: bool) -> jnp.ndarray:
-    n = x.shape[0]
-    n_pad = ((n + TILE - 1) // TILE) * TILE
-    xp = jnp.pad(x, (0, n_pad - n)).reshape(-1, LANES)  # [R, 128]
-    rows = xp.shape[0]
-    grid = rows // SUBLANES
-
-    lane_scan, row_tot = pl.pallas_call(
-        _scan_tile_kernel,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((SUBLANES, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        ],
-        out_specs=(
-            pl.BlockSpec((SUBLANES, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((SUBLANES, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((rows, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((rows, 1), jnp.float32),
-        ),
-    )(xp)
-
-    # Hierarchical carry: exclusive scan of row totals (tiny, [R]).
-    row_off = exclusive_scan_jnp(row_tot[:, 0])
-    out = lane_scan + row_off[:, None]
-    if not inclusive:
-        out = out - xp
-    return out.reshape(-1)[:n]
-
-
-# The f32 accumulation is exact only while every prefix sum stays <= 2^24
-# (f32 integer-exactness bound).  For 0/1 flags that means N <= 2^24 = 16.7M
-# elements -- a 4096x4096 film.  Larger scans must use the jnp path.
-_F32_EXACT_N = 1 << 24
-
-
-def _pallas_ok(x: jnp.ndarray, use_pallas: bool) -> bool:
-    if not use_pallas or x.shape[0] < TILE or jax.devices()[0].platform == "cpu":
-        return False
-    if jnp.issubdtype(x.dtype, jnp.integer) and x.shape[0] > _F32_EXACT_N:
-        raise ValueError(
-            f"Pallas f32 scan is exact only up to N = 2^24 for integer "
-            f"inputs; got N = {x.shape[0]}.  Pass use_pallas=False."
-        )
-    return True
-
-
-def exclusive_scan(x: jnp.ndarray, use_pallas: bool = True) -> jnp.ndarray:
-    """Exclusive prefix sum (``StreamCompaction::Efficient::scan`` parity)."""
-    if not _pallas_ok(x, use_pallas):
-        return exclusive_scan_jnp(x)
-    orig_dtype = x.dtype
-    out = _scan_pallas_f32(x.astype(jnp.float32), inclusive=False)
-    if jnp.issubdtype(orig_dtype, jnp.integer):
-        out = jnp.round(out).astype(orig_dtype)
-    return out
-
-
-def inclusive_scan(x: jnp.ndarray, use_pallas: bool = True) -> jnp.ndarray:
-    if not _pallas_ok(x, use_pallas):
-        return inclusive_scan_jnp(x)
-    orig_dtype = x.dtype
-    out = _scan_pallas_f32(x.astype(jnp.float32), inclusive=True)
-    if jnp.issubdtype(orig_dtype, jnp.integer):
-        out = jnp.round(out).astype(orig_dtype)
-    return out
-
-
-# ---------------------------------------------------------------------------
 # Compact (map-to-bool -> scan -> scatter), Efficient::compact parity
 # ---------------------------------------------------------------------------
 
-def compact_indices(flags: jnp.ndarray, use_pallas: bool = True):
+def compact_indices(flags: jnp.ndarray):
     """Returns (dest, count): dest[i] is the output slot of element i when
     flags[i], else the slot among the rejected tail (stable both sides --
     i.e. a stable-partition permutation, matching thrust::stable_partition
     semantics used by the render loop)."""
     f = flags.astype(jnp.int32)
-    keep_rank = exclusive_scan(f, use_pallas)
+    keep_rank = exclusive_scan(f)
     count = keep_rank[-1] + f[-1]
-    drop_rank = exclusive_scan(1 - f, use_pallas)
+    drop_rank = exclusive_scan(1 - f)
     dest = jnp.where(flags, keep_rank, count + drop_rank)
     return dest, count
 
 
-def compact(values: jnp.ndarray, flags: jnp.ndarray, use_pallas: bool = True):
+def compact(values: jnp.ndarray, flags: jnp.ndarray):
     """Front-pack values by flags (stable); returns (packed, count).
     Rejected elements appear after the packed prefix."""
     n = values.shape[0]
-    dest, count = compact_indices(flags, use_pallas)
+    dest, count = compact_indices(flags)
     out = jnp.zeros_like(values).at[dest].set(values)
     return out, count
 
@@ -184,7 +82,7 @@ def compact(values: jnp.ndarray, flags: jnp.ndarray, use_pallas: bool = True):
 # ---------------------------------------------------------------------------
 
 def radix_sort_permutation(
-    keys: jnp.ndarray, num_bits: int = 32, use_pallas: bool = True
+    keys: jnp.ndarray, num_bits: int = 32
 ) -> jnp.ndarray:
     """Stable ascending sort permutation of non-negative int32 keys via
     num_bits LSB->MSB split passes, each a scan-driven stable partition
@@ -197,7 +95,7 @@ def radix_sort_permutation(
     def body(bit, carry):
         perm, k = carry
         zero = (k >> bit) & 1 == 0
-        dest, _ = compact_indices(zero, use_pallas)
+        dest, _ = compact_indices(zero)
         perm = jnp.zeros_like(perm).at[dest].set(perm)
         k = jnp.zeros_like(k).at[dest].set(k)
         return perm, k

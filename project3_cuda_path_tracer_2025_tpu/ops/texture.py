@@ -13,9 +13,7 @@ convention is used here with full float weights (CUDA quantizes the fraction
 to 9 bits -- a <0.2% difference well under the RMSE gate).
 
 Implemented as ROW gathers from the RGBA row table (one row per texel): a
-bilinear sample is 4 row gathers fetching all channels at once -- the fast
-gather form on this TPU -- so texturing is hot-path viable (~1 ms per
-640k-ray bounce).
+bilinear sample is 4 row gathers fetching all channels at once.
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
-"""Multi-chip scale-out: data parallelism over pixels/rays via jax.sharding.
+"""Multi-device scale-out: data parallelism over pixels/rays via jax.sharding.
 
 The reference is strictly single-GPU (SURVEY.md section 2.3); path tracing is
-embarrassingly parallel over rays, so the TPU-native scale-out shards the
-N = W*H path slots across a 1-D device mesh ("rays" axis) over ICI:
+embarrassingly parallel over rays, so the scale-out shards the N = W*H path
+slots across a flat 1-D device mesh ("rays" axis).  Every device reaches
+every other at the same rate (NVLink, all to all), so the mesh follows the
+algorithm alone:
 
 * every per-ray array (path state, film, RNG uniforms) is sharded on its ray
   axis,
 * the scene tables (materials, triangles, BVH, textures) are replicated --
-  each chip traverses the same read-only BVH,
+  each device traverses the same read-only BVH,
 * within a bounce there is NO cross-device communication; the only
   collectives are the (tiny) alive-count psums for telemetry and the film
   gather at save time.
@@ -15,18 +17,18 @@ N = W*H path slots across a 1-D device mesh ("rays" axis) over ICI:
 Dividing work by pixel keeps the film's scatter-add local to each shard, so
 no ring/all-reduce is ever needed on the film itself.
 
-This module uses XLA's AUTOMATIC partitioner (jit + shardings), which cannot
-split Pallas custom calls -- it covers the jnp integrator paths and serves
-as the sharding oracle in tests.  The PRODUCTION multi-chip path is
-``parallel.shardmap``: the whole iteration (including every Pallas kernel)
-runs inside ``jax.shard_map`` per chip, and it adds the sample-parallel
-mode (each chip renders different spp of the full frame, films summed on
+This module uses XLA's AUTOMATIC partitioner (jit + shardings) on the jnp
+integrator paths and serves as the sharding oracle in tests.  The
+PRODUCTION multi-device path is ``parallel.shardmap``: the whole iteration
+runs inside ``jax.shard_map`` per device, and it adds the sample-parallel
+mode (each device renders different spp of the full frame, films summed on
 save) for resolutions that don't divide evenly.  ``RenderConfig(devices=N)``
 routes the Renderer/CLI through it.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import jax
@@ -89,15 +91,20 @@ def sharded_iteration(
     )
 
 
-def dryrun(n_devices: int, scene_path: str = "/root/reference/scenes/cornell.json",
+SCENE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "scenes", "cornell.json",
+)
+
+
+def dryrun(n_devices: int, scene_path: str = SCENE,
            width: int = 64, height: int = 64, integrator: str = "megakernel",
            **cfg_overrides) -> Tuple:
     """Compile + execute ONE sharded iteration on tiny shapes.
 
-    Used by ``__graft_entry__.dryrun_multichip`` (driver validation with
-    virtual CPU devices) and by the sharding tests.  ``cfg_overrides`` are
-    forwarded to ``RenderConfig`` (e.g. ``mesh_intersector="mxu"`` to push
-    the Pallas MXU intersector through the sharded step).
+    Used by ``__graft_entry__.dryrun_multichip`` (validation on virtual CPU
+    devices) and by the sharding tests.  ``cfg_overrides`` are forwarded to
+    ``RenderConfig`` (e.g. ``mesh_intersector="brute"``).
     """
     from ..ops import film as film_ops
     from ..scene import build_device_scene, camera_state, derive_render_camera, load_scene, set_resolution

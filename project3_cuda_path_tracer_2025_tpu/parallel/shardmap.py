@@ -1,29 +1,28 @@
-"""Multi-chip rendering as ``shard_map`` over the ray axis (production path).
+"""Multi-device rendering as ``shard_map`` over the ray axis (production path).
 
-``parallel.mesh.sharded_iteration`` relies on XLA's automatic partitioner,
-which cannot split custom calls -- the Pallas production kernels (fused
-bounce, MXU intersector) would be replicated or rejected on a real multi-chip
-mesh.  This module is the TPU-idiomatic formulation instead: the whole
-iteration body runs INSIDE ``jax.shard_map``, so every chip executes the
-full single-chip program (including all Pallas kernels) on its local
-pixel block with local shapes, and the only collective in the entire
-iteration is one tiny ``psum`` of the per-depth alive counts.
+The whole iteration body runs INSIDE ``jax.shard_map``, so every device
+executes the full single-device program on its local pixel block with local
+shapes, and the only collective in the entire iteration is one tiny
+``psum`` of the per-depth alive counts.  The mesh is the flat 1-D "rays"
+axis of ``parallel.mesh.make_pixel_mesh``: devices joined all to all
+(NVLink) need no topology in it.
 
 Two modes (both bit-identical to single-chip, asserted in tests):
 
-* ``pixel``  -- the N = W*H path slots are block-sharded across chips; each
-  chip renders its own pixel rows every iteration.  RNG stays bit-identical
-  because every draw is ``prng.uniforms_at`` at GLOBAL (pixel, depth)
-  counters -- a chip evaluates exactly the slice of the global stream its
-  pixels own, so film(pixel-parallel, nd chips) == film(single chip), bit
-  for bit.
-* ``sample`` -- every chip renders the FULL frame at a different iteration
-  number (chip d of nd renders iterations d+1, d+1+nd, ...); the per-chip
-  films are summed on save.  nd chips advance the accumulator nd samples
-  per step: film(sample-parallel, one step) == film(single chip, nd steps).
+* ``pixel``  -- the N = W*H path slots are block-sharded across devices;
+  each device renders its own pixel rows every iteration.  RNG stays
+  bit-identical because every draw is ``prng.uniforms_at`` at GLOBAL
+  (pixel, depth) counters -- a device evaluates exactly the slice of the
+  global stream its pixels own, so film(pixel-parallel, nd devices) ==
+  film(one device), bit for bit.
+* ``sample`` -- every device renders the FULL frame at a different
+  iteration number (device d of nd renders iterations d+1, d+1+nd, ...);
+  the per-device films are summed on save.  nd devices advance the
+  accumulator nd samples per step: film(sample-parallel, one step) ==
+  film(one device, nd steps).
 
-The scene tables are replicated (every chip traverses the same read-only
-geometry); there is no cross-chip traffic per bounce -- by construction,
+The scene tables are replicated (every device traverses the same read-only
+geometry); there is no cross-device traffic per bounce -- by construction,
 not by compiler luck.  SURVEY.md section 2.3: the reference is single-GPU;
 this is the scale-out the CUDA architecture never had.
 """
@@ -37,7 +36,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..config import RenderConfig
 from ..models.megakernel import megakernel_iteration
 from ..models.wavefront import wavefront_iteration
-from ..scene.device import DeviceScene, SceneStatic
+from ..scene.device import SceneStatic
 from ..utils.vec import Vec3
 from .mesh import make_pixel_mesh
 
@@ -56,7 +55,7 @@ def sharded_film(static: SceneStatic, mesh: Mesh, mode: str) -> Vec3:
     """Fresh film with the layout the sharded step expects."""
     nd = mesh.devices.size
     if mode == "sample":
-        # one full-frame accumulator row per chip, summed at save
+        # one full-frame accumulator row per device, summed at save
         z = jnp.zeros((nd, static.pixel_count), jnp.float32)
         sh = NamedSharding(mesh, P(AXIS, None))
     else:
@@ -67,13 +66,12 @@ def sharded_film(static: SceneStatic, mesh: Mesh, mode: str) -> Vec3:
 
 
 def make_sharded_step(
-    dev: DeviceScene,
     static: SceneStatic,
     cfg: RenderConfig,
     mesh: Mesh,
     mode: str = "pixel",
 ):
-    """Build the multi-chip step(cam, film, iteration, key).
+    """Build the multi-device step(dev, cam, film, iteration, key).
 
     Returns (jitted_step, traceable_step, spp_per_step): ``traceable_step``
     is the unjitted callable for embedding in a fori_loop (Renderer's
@@ -110,18 +108,18 @@ def make_sharded_step(
             check_vma=False,
         )
 
-        def step(cam, film, iteration, key):
+        def step(dev, cam, film, iteration, key):
             return inner(dev, cam, film, idx_global, iteration, key)
 
-        return jax.jit(step, donate_argnums=(1,)), step, 1
+        return jax.jit(step, donate_argnums=(2,)), step, 1
 
     if mode != "sample":
         raise ValueError(f"unknown parallel_mode {mode!r}")
 
     def local_sample(dev_l, cam, film_row, iteration, key):
-        # iteration is the LAST global sample this step will complete; chip
-        # d renders global iteration (iteration - nd + 1 + d) -- together
-        # the step advances the film by exactly nd samples.
+        # iteration is the LAST global sample this step will complete;
+        # device d renders global iteration (iteration - nd + 1 + d) --
+        # together the step advances the film by exactly nd samples.
         d = jax.lax.axis_index(AXIS)
         it = iteration - nd + 1 + d
         film_l = Vec3(film_row.x[0], film_row.y[0], film_row.z[0])
@@ -137,15 +135,15 @@ def make_sharded_step(
         check_vma=False,
     )
 
-    def step(cam, film, iteration, key):
+    def step(dev, cam, film, iteration, key):
         return inner(dev, cam, film, iteration, key)
 
-    return jax.jit(step, donate_argnums=(1,)), step, nd
+    return jax.jit(step, donate_argnums=(2,)), step, nd
 
 
 def film_to_flat(film: Vec3, mode: str) -> Vec3:
-    """Collapse the sharded film to the single-chip [N] layout (save time:
-    the only cross-chip data movement in the whole pipeline)."""
+    """Collapse the sharded film to the single-device [N] layout (save
+    time: the only cross-device data movement in the whole pipeline)."""
     if mode == "sample":
         return Vec3(
             jnp.sum(film.x, axis=0), jnp.sum(film.y, axis=0),

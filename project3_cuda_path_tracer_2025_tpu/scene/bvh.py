@@ -1,4 +1,4 @@
-"""BVH build (host) + threaded layout for stackless TPU traversal.
+"""BVH build (host) + threaded layout for a stackless vectorized walk.
 
 Build parity with ``Scene::buildBVH`` / ``buildBVHRecursive``
 (``src/scene.cpp:445-525``): recursive top-down midpoint split on the longest
@@ -8,8 +8,8 @@ partition degenerates.  Node records {aabb, left, right, start, tri_count}
 with children by index and pre-order (DFS) numbering, exactly like the
 reference (``src/sceneStructs.h:95-101``).
 
-TPU-native addition: because a per-lane traversal stack (reference:
-``int stack[64]``, ``src/intersections.cu:166``) is hostile to a vector unit,
+Addition over the reference: because a per-lane traversal stack (reference:
+``int stack[64]``, ``src/intersections.cu:166``) does not vectorize,
 we *thread* the tree: every node gets a ``miss_link`` (next node in DFS order
 after its subtree) so traversal is a single monotonically-increasing node
 cursor per ray -- hit an internal node -> descend to ``i+1`` (its left child in

@@ -1,7 +1,7 @@
 """Device scene: SoA jnp arrays + hashable static metadata.
 
 The reference uploads its host vectors verbatim (AoS) in ``pathtraceInit``
-(``src/pathtrace.cu:134-207``).  Here the upload step *restructures* for TPU:
+(``src/pathtrace.cu:134-207``).  Here the upload step *restructures* for a vectorized walk:
 
 * every vector quantity becomes a ``Vec3`` of flat ``[N]`` arrays,
 * triangles are reordered into BVH-leaf order so each leaf's triangles are a
@@ -42,8 +42,8 @@ class GeomConst(NamedTuple):
 
 
 class MaterialConst(NamedTuple):
-    """One material as static constants (for the fused bounce kernel, where
-    the whole table constant-folds into select chains)."""
+    """One material as static constants (for the whole-iteration prim
+    kernel, where the whole table constant-folds into select chains)."""
 
     color: Tuple[float, float, float]
     emittance: float
@@ -73,18 +73,6 @@ class SceneStatic:
     tex_wmax: int
     tex_hmax: int
     image_name: str
-    # Triangle count padded to the MXU intersector's tile size (0 = no mesh).
-    mxu_padded_tris: int = 0
-    # Mesh AABB (xmin,ymin,zmin,xmax,ymax,zmax) as static floats; used to
-    # normalize ray origins for coherence-sort morton keys.
-    mesh_bounds: Tuple[float, float, float, float, float, float] = (
-        0.0, 0.0, 0.0, 1.0, 1.0, 1.0,
-    )
-    # True if any ANALYTIC PRIM's material has a texture or bump map.  Prim
-    # UVs are identically (0, 0) (reference parity), so texture lookups on
-    # prim lanes are degenerate; the fused mesh path only supports textures
-    # when they live on mesh materials (see ``fused.fused_mesh_applicable``).
-    prim_textured: bool = False
     # Per-texture (width, height) as static ints: lets per-lane texture dims
     # resolve as constant select chains instead of device gathers.
     tex_dims: Tuple[Tuple[int, int], ...] = ()
@@ -153,8 +141,7 @@ class TextureTable(NamedTuple):
 
     ``rgba``: [NT * Hmax * Wmax, 4] f32 -- one ROW per texel so a bilinear
     tap is a single row gather (4 row gathers per sample) instead of
-    per-channel 1D gathers; row gathers are the fast gather form on this
-    TPU (~9 Gelem/s measured vs serial element gathers).
+    per-channel 1D gathers.
 
     ``grad``: [NT * Hmax * Wmax, 2] f32 -- per-texel wrapped forward
     differences of the height (red) channel: (h[y][x+1]-h[y][x],
@@ -184,7 +171,6 @@ class DeviceScene(NamedTuple):
     triangles: TriangleTable
     bvh: BVHTable
     textures: TextureTable
-    mxu_mesh: "object"  # ops.intersect_mxu.MXUMeshTables (lazy import)
 
 
 def _snap(x: float) -> float:
@@ -296,23 +282,6 @@ def build_device_scene(scene: HostScene) -> tuple[DeviceScene, SceneStatic]:
         dpdv=_vec3_from(dpdv),
     )
 
-    # --- MXU intersector tables ---------------------------------------------
-    from ..ops import intersect_mxu as _mxu  # lazy: avoids import cycle
-
-    if T > 0:
-        mxu_tables = _mxu.build_mxu_tables(pos, nrm, uv, dpdu, dpdv, mat)
-        mxu_padded = ((T + _mxu.GROUP_TRIS - 1) // _mxu.GROUP_TRIS) * _mxu.GROUP_TRIS
-        flat_pos = pos.reshape(-1, 3)
-        mesh_bounds = tuple(
-            float(x) for x in np.concatenate(
-                [flat_pos.min(axis=0), flat_pos.max(axis=0)]
-            )
-        )
-    else:
-        mxu_tables = _mxu.dummy_mxu_tables()
-        mxu_padded = 0
-        mesh_bounds = (0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
-
     # --- BVH --------------------------------------------------------------
     if scene.bvh is not None and T > 0:
         from .bvh import build_octant_layouts
@@ -401,15 +370,9 @@ def build_device_scene(scene: HostScene) -> tuple[DeviceScene, SceneStatic]:
         tex_wmax=wmax,
         tex_hmax=hmax,
         image_name=scene.state.image_name,
-        mxu_padded_tris=mxu_padded,
-        mesh_bounds=mesh_bounds,
-        prim_textured=any(
-            ms[g.material_id].has_texture or ms[g.material_id].has_bump_map
-            for g in scene.geoms
-        ),
         tex_dims=tuple((int(w), int(h)) for w, h in wh),
     )
     return (
-        DeviceScene(materials, triangles, bvh, textures, mxu_tables),
+        DeviceScene(materials, triangles, bvh, textures),
         static,
     )

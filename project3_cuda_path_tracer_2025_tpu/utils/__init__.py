@@ -1,3 +1,3 @@
-from . import vec, mathutil, prng, image_io, timers
+from . import vec, mathutil, prng, image_io, timers, compile_cache
 
-__all__ = ["vec", "mathutil", "prng", "image_io", "timers"]
+__all__ = ["vec", "mathutil", "prng", "image_io", "timers", "compile_cache"]

@@ -1,7 +1,7 @@
 """Counter-based RNG for path tracing.
 
 The reference seeds a minstd LCG per (iteration, pixel, depth) via
-``makeSeededRandomEngine`` (``src/pathtrace.cu:51-56``).  On TPU we use JAX's
+``makeSeededRandomEngine`` (``src/pathtrace.cu:51-56``).  Here we use JAX's
 counter-based threefry: a base key folded with (iteration, depth, stage)
 produces a key whose per-lane draws are implicitly indexed by pixel, giving an
 independent, reproducible stream per (iter, pixel, depth) with equivalent
@@ -65,10 +65,10 @@ def _threefry_bits_at(key: jax.Array, flat: jnp.ndarray) -> jnp.ndarray:
 def threefry_bits_inline(k0, k1, flat) -> jnp.ndarray:
     """``_threefry_bits_at`` as inlineable uint32 vector ops.
 
-    Mosaic cannot lower the ``threefry2x32_p`` primitive, so Pallas
-    kernels that draw their own per-pixel uniforms (the fused mesh
-    bounce) need the hash spelled out: the standard Threefry-2x32
-    schedule (5 x 4 rounds, rotations (13,15,26,6)/(17,29,16,24), key
+    Pallas kernels cannot lower the ``threefry2x32_p`` primitive, so a
+    kernel that draws its own per-pixel uniforms (``ops/fused.py``) needs
+    the hash spelled out: the standard Threefry-2x32 schedule (5 x 4
+    rounds, rotations (13,15,26,6)/(17,29,16,24), key
     injections every 4 rounds), applied at counter ``(0, flat)`` --
     bit-identical to jax's lowering of the primitive (asserted in
     tests/test_prng.py).  ``k0``/``k1`` may be scalars or broadcastable
@@ -105,12 +105,12 @@ def uniforms_at(key: jax.Array, idx: jnp.ndarray, k: int, n: int) -> jax.Array:
 
     Counter-based threefry makes each draw a pure elementwise function of its
     flat counter ``j * n + idx``, so a permuted integrator (wavefront
-    compaction/sort, the fused mesh path's persistent coherence sort) can
+    compaction/sort) can
     evaluate a slot's per-PIXEL random stream in place -- this is what makes
     every integrator/toggle combination bit-identical (the reference reseeds
     per (iter, pixel, depth) the same way, ``src/pathtrace.cu:51-56``).
-    TPU-first: replaces a [n, k] row gather (~7 ms at 640k rays) with ~40
-    vector int ops per lane, which XLA fuses into neighbors."""
+    It replaces a [n, k] row gather with ~40 int ops per lane, which XLA
+    fuses into neighbors."""
     outs = []
     for j in range(k):
         flat = jnp.uint32(j * n) + idx.astype(jnp.uint32)

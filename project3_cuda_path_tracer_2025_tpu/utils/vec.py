@@ -1,10 +1,9 @@
-"""SoA 3-vector math for the VPU.
+"""SoA 3-vector math.
 
-The reference stores ``glm::vec3`` AoS throughout.  On TPU an ``[N, 3]``
-float32 array wastes 125/128 lanes of every vector register, so a 3-vector
-field over N rays is instead a pytree of three flat ``[N]`` arrays.  All
-operations below are elementwise over the component arrays and map 1:1 onto
-8x128 VPU ops; XLA fuses chains of them into single loops over HBM.
+The reference stores ``glm::vec3`` AoS throughout.  Here a 3-vector field
+over N rays is a pytree of three flat ``[N]`` arrays, so every access is
+contiguous.  All operations below are elementwise over the component arrays;
+XLA fuses chains of them into single loops over device memory.
 
 Component arrays can be any broadcastable shape (scalars work too), which
 keeps the same code usable for single vectors and ray batches.

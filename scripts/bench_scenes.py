@@ -1,9 +1,9 @@
 """Benchmark a set of scenes on the current backend; prints one JSON line per
 config plus a summary.
 
-Each config runs in its OWN subprocess: a TPU device fault (observed with
-very large threaded-traversal programs) then only kills that config instead
-of poisoning every following run.
+Each config runs in its OWN subprocess, one after another (the parent never
+touches JAX, so each child has the card to itself): a fault in one config
+then only kills that config instead of poisoning every following run.
 
 Covers the reference's benchmark matrix (BASELINE.md): cornell-class
 diffuse, mesh+BVH (and optional brute-force A/B), material sorting A/B.
@@ -83,30 +83,27 @@ def main():
     args = ap.parse_args()
 
     runs = [
-        ("/root/reference/scenes/cornell.json", {}),
+        ("scenes/cornell.json", {}),
         ("scenes/cornell_mesh_5k.json", {}),
         ("scenes/cornell_mesh_20k.json", {}),
         ("scenes/cornell_mesh_textured.json", {}),
-        ("scenes/cornell_prim_textured.json", {}),  # precomputed-surface fused
-        ("scenes/cornell_mesh_80k.json", {}),  # chunked MXU chain
+        ("scenes/cornell_prim_textured.json", {}),
+        ("scenes/cornell_mesh_80k.json", {}),
         ("scenes/cornell_mesh_200k.json", {}),  # cyrene-class heavy mesh
         ("scenes/cornell_mesh_500k.json", {}),  # 2.5x past the reference's largest
     ]
     if not args.quick:
         runs += [
-            ("scenes/cornell_mesh_5k.json", {"ray_sorting": "off"}),
-            # tiers A/B (default is auto -> (4,2) on TPU)
-            ("scenes/cornell_mesh_5k.json", {"bounce_prefix_tiers": ()}),
-            # binned traversal: the measured winner in the 100k-300k band
-            ("scenes/cornell_mesh_200k.json", {"mxu_traversal": "binned"}),
+            # the XLA megakernel on the prim room (auto = Triton kernel)
+            ("scenes/cornell.json", {"fused_bounce": "off"}),
             # wavefront default = adaptive compaction + tiers
-            ("/root/reference/scenes/cornell.json", {"integrator": "wavefront"}),
+            ("scenes/cornell.json", {"integrator": "wavefront"}),
             (  # the reference's always-pack STREAM_COMPACTION parity config
-                "/root/reference/scenes/cornell.json",
+                "scenes/cornell.json",
                 {"integrator": "wavefront", "stream_compaction": True},
             ),
             (
-                "/root/reference/scenes/cornell.json",
+                "scenes/cornell.json",
                 {"integrator": "wavefront", "material_sorting": True},
             ),
             ("scenes/cornell_mesh_5k.json", {"bvh_acceleration": False}),

@@ -4,12 +4,12 @@ The reference measures its compaction toggle on a scene pair differing only
 by a front wall (``cornell_obj_phatphuck.json`` vs ``_closed.json``):
 closed 148.7 ms vs open 109.7 ms with compaction on (README.md:138-151),
 because closed-box rays rarely terminate so compaction has nothing to
-remove.  This reruns that exact methodology on TPU with the static-shape
+remove.  This reruns that exact methodology with the static-shape
 compaction (front-pack permutation) of the wavefront integrator, plus the
 megakernel (mask-only termination) for context, on the procedural scene
 pair ``cornell_mesh_5k.json`` / ``cornell_mesh_5k_closed.json``.
 
-Prints one JSON line per (scene, config) and a summary; run on TPU:
+Prints one JSON line per (scene, config) and a summary; run on the GPU:
     python scripts/compaction_study.py [--res 800 --spp 32]
 """
 

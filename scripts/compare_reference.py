@@ -18,22 +18,21 @@ sys.path.insert(0, ".")
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("scene", nargs="?", default="/root/reference/scenes/cornell.json")
+    ap.add_argument("scene", nargs="?", default="scenes/cornell.json")
     ap.add_argument("--spp", type=int, default=512)
-    # Default golden: the AUTHOR's 5000-spp render (the instructor's
-    # REFERENCE_cornell.5000samp.png is ~25% darker because it does not
-    # deposit depth-exhausted throughput; see CLAUDE.md parity invariants).
-    ap.add_argument(
-        "--ref",
-        default="/root/reference/img/cornell.2025-09-25_23-38-19z.5000samp.png",
-    )
+    # The golden is the reference AUTHOR's 5000-spp render
+    # (img/cornell.2025-09-25_23-38-19z.5000samp.png in the reference repo;
+    # the instructor's REFERENCE_cornell.5000samp.png is ~25% darker because
+    # it does not deposit depth-exhausted throughput; see CLAUDE.md parity
+    # invariants).
+    ap.add_argument("--ref", required=True, help="reference golden PNG")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--res", type=int, nargs=2, default=None)
     ap.add_argument("--integrator", default="megakernel")
     ap.add_argument("--aperture", type=float, default=None,
                     help="override the scene camera aperture (0 = pinhole control)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default="/tmp/compare")
+    ap.add_argument("--out", default="img/compare")
     args = ap.parse_args()
 
     import jax

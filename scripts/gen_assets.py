@@ -258,7 +258,7 @@ def cornell_prim_textured_scene(out_name, with_mesh, res=800, depth=8,
     flat -- this scene reproduces exactly that quirk (no BUMP_MAP: with the
     prims' zero tangent frames the reference's perturbation would
     glm::normalize(vec3(0)) -> NaN).  ``with_mesh`` adds an untextured mesh
-    so the scene exercises the precomputed-surface fused path with a mesh
+    so the scene exercises textured prims with a mesh
     merge."""
     scene = {
         "Materials": {

@@ -35,7 +35,7 @@ GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 # full mesh pipeline -- OBJ load, BVH, traversal, texture + bump shading
 # (mesh_textured).
 MATRIX = [
-    ("cornell", "/root/reference/scenes/cornell.json", 48, 48, 2),
+    ("cornell", os.path.join(REPO, "scenes", "cornell.json"), 48, 48, 2),
     ("glass", "/root/reference/scenes/cornell_glass_test.json", 32, 32, 2),
     ("microfacet",
      "/root/reference/scenes/cornell_microfacet_test.json", 32, 32, 2),

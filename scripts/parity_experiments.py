@@ -17,14 +17,17 @@ This script runs the controls that close the question:
 Round-4 addition (--trans-floor): the round-3 campaign compared the best
 scene-matched render (RMSE 0.0155) against the A/A floor of the DIFFUSE
 cornell (0.01255) -- but the golden's scene is the transmissive sphere at
-APERTURE 0.8 (= /root/reference/scenes/cornell_transmissive_test.json,
+APERTURE 0.8 (= the reference's scenes/cornell_transmissive_test.json,
 whose camera block settles the round-3 "guessed parameter" question: the
 aperture is 0.8 by the author's own file).  Transmissive paths carry more
 variance at equal spp, so the operative floor is the A/A RMSE of THAT
 scene.  --trans-floor measures it (two seeds, reference scene file), plus
 an error decomposition (mean-shift vs residual) against the golden.
 
-Usage: python scripts/parity_experiments.py [--spp 5000] [--quick]
+Usage: python scripts/parity_experiments.py --golden PNG [--ref-trans JSON]
+           [--spp 5000] [--quick]
+(PNG: the reference's img/cornell.2025-09-25_23-38-19z.5000samp.png; JSON:
+its scenes/cornell_transmissive_test.json.)
 Writes renders to renders/parity/ and a JSON summary to stdout +
 renders/parity/summary.json.
 """
@@ -37,8 +40,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-GOLDEN = "/root/reference/img/cornell.2025-09-25_23-38-19z.5000samp.png"
-CORNELL = "/root/reference/scenes/cornell.json"
+CORNELL = "scenes/cornell.json"
 TRANS = "scenes/cornell_transmissive_sphere.json"
 OUT = "renders/parity"
 
@@ -48,6 +50,9 @@ def main():
     ap.add_argument("--spp", type=int, default=5000)
     ap.add_argument("--quick", action="store_true", help="256 spp smoke mode")
     ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--golden", required=True, help="the author's golden PNG")
+    ap.add_argument("--ref-trans", default=None,
+                    help="the reference's cornell_transmissive_test.json")
     ap.add_argument("--trans-floor", action="store_true",
                     help="run only the round-4 transmissive-floor controls")
     args = ap.parse_args()
@@ -66,7 +71,7 @@ def main():
     from project3_cuda_path_tracer_2025_tpu.utils import image_io
 
     os.makedirs(OUT, exist_ok=True)
-    golden = image_io.read_png(GOLDEN).astype(np.float64) / 255.0
+    golden = image_io.read_png(args.golden).astype(np.float64) / 255.0
 
     def render(scene_path, seed=0, aperture=None, tag=""):
         scene = load_scene(scene_path)
@@ -92,7 +97,7 @@ def main():
         # Round-4 controls: the reference's OWN transmissive scene file
         # (aperture 0.8 is in the file -- not a guessed parameter), its A/A
         # floor, and a decomposition of the remaining golden residual.
-        REF_TRANS = "/root/reference/scenes/cornell_transmissive_test.json"
+        REF_TRANS = args.ref_trans
         t0 = render(REF_TRANS, seed=0, tag="ref-trans seed0")
         t1 = render(REF_TRANS, seed=1, tag="ref-trans seed1")
         summary["aa_rmse_trans"] = rmse(t0, t1)

@@ -23,7 +23,7 @@ def main():
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--res", type=int, default=800)
     ap.add_argument("--k", type=int, default=32)
-    ap.add_argument("--scene", default="/root/reference/scenes/cornell.json")
+    ap.add_argument("--scene", default="scenes/cornell.json")
     args = ap.parse_args()
 
     if args.cpu:
@@ -47,7 +47,6 @@ def main():
         derive_render_camera,
     )
     from project3_cuda_path_tracer_2025_tpu.utils import prng
-    from project3_cuda_path_tracer_2025_tpu.utils.timers import device_sync
 
     scene = set_resolution(load_scene(args.scene), args.res, args.res)
     dev, static = build_device_scene(scene)
@@ -72,10 +71,10 @@ def main():
     def timed(name, fn, *arrs):
         f = jax.jit(fn)
         out = f(*arrs)  # compile
-        device_sync(out)
+        jax.block_until_ready(out)
         t0 = time.perf_counter()
         out = f(*arrs)
-        device_sync(out)
+        jax.block_until_ready(out)
         ms = (time.perf_counter() - t0) * 1e3 / k
         print(f"{name:28s} {ms:8.3f} ms/bounce")
         return ms

@@ -1,16 +1,10 @@
-"""Render the FULL reference scene matrix (VERDICT round-4 #8).
+"""Render every scene in scenes/ end to end at low spp.
 
-All 25 reference JSONs have always parsed in tests; this renders every
-loadable one end-to-end at low spp (subprocess-isolated like
-bench_scenes.py, so one backend fault can't poison the sweep), asserting a
-finite film and sane brightness, and recording ms/frame.  Catches
-per-scene regressions the cornell-class benches can't see (the
-missing-APERTURE path in sphere.json, multi-glass scenes, ...).
-
-Scenes whose assets are stripped from the mirror
-(/root/reference/.MISSING_LARGE_BLOBS: all cornell_obj_*.json) record a
-load error -- expected, not a failure.  Repo proxy scenes (scenes/*.json)
-are appended so the swept set covers every renderable scene class.
+Each scene renders in its own subprocess (like bench_scenes.py, so one
+fault can't poison the sweep), asserting a finite film and sane
+brightness, and recording ms/frame.  Scenes whose assets are not in the
+tree record a load error -- expected, not a failure.  ``--extra-dir`` adds
+the JSON scenes of another directory (e.g. the reference's own suite).
 
     python scripts/scene_matrix.py [--cpu] [--spp 4] [--res 200] [--out F]
 """
@@ -92,11 +86,13 @@ def main():
                     help="square res override (default: native)")
     ap.add_argument("--timeout", type=int, default=2400)
     ap.add_argument("--only", default=None)
-    ap.add_argument("--out", default="renders/scene_matrix.json")
+    ap.add_argument("--out", default="chiprun_out/scene_matrix.json")
+    ap.add_argument("--extra-dir", default=None)
     args = ap.parse_args()
 
-    paths = sorted(glob.glob("/root/reference/scenes/*.json"))
-    paths += sorted(glob.glob(os.path.join(REPO, "scenes", "*.json")))
+    paths = sorted(glob.glob(os.path.join(REPO, "scenes", "*.json")))
+    if args.extra_dir:
+        paths += sorted(glob.glob(os.path.join(args.extra_dir, "*.json")))
 
     results = []
     n_bad = 0

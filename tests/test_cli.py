@@ -24,18 +24,17 @@ def test_parser_flags():
     assert a.integrator == "wavefront"
 
 
-def test_end_to_end_render_devices_tiers(tmp_path, scenes_dir):
-    """--devices N (shard_map) with --fused-bounce on and prefix tiers,
-    through the real argv surface, equals the single-chip render."""
+def test_end_to_end_render_devices_tiers(tmp_path, scene_file):
+    """--devices N (shard_map) with the wavefront's prefix tiers, through
+    the real argv surface, equals the single-device render."""
     import jax
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
     common = [
-        str(scenes_dir / "cornell.json"),
+        str(scene_file("cornell.json")),
         "--cpu", "--res", "16", "16", "--spp", "1", "--quiet",
-        "--fused-bounce", "on",
-        "--ray-sorting", "on", "--bounce-prefix-tiers", "4,2",
+        "--integrator", "wavefront", "--bounce-prefix-tiers", "4,2",
     ]
     a, b = tmp_path / "single", tmp_path / "sharded"
     a.mkdir(), b.mkdir()
@@ -48,10 +47,10 @@ def test_end_to_end_render_devices_tiers(tmp_path, scenes_dir):
     np.testing.assert_array_equal(ia, ib)
 
 
-def test_end_to_end_render(tmp_path, scenes_dir, capsys):
+def test_end_to_end_render(tmp_path, scene_file, capsys):
     rc = cli.main(
         [
-            str(scenes_dir / "cornell.json"),
+            str(scene_file("cornell.json")),
             "--cpu",
             "--res", "16", "16",
             "--spp", "2",

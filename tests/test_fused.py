@@ -1,7 +1,8 @@
-"""Fused Pallas bounce kernel vs the unfused megakernel path.
+"""Whole-iteration prim kernel (ops/fused.py) vs the XLA megakernel.
 
-Interpret mode on CPU; the compiled kernel is exercised on hardware by
-bench.py (observed bit-stable and 6x faster than the unfused iteration).
+The kernel runs in Pallas interpret mode here; the compiled Triton kernel
+is compared with the megakernel at 800x800 by ``chip_smoke.py`` on the card
+and by the ``gpu``-marked test below.
 """
 
 import numpy as np
@@ -12,22 +13,69 @@ from project3_cuda_path_tracer_2025_tpu.models import Renderer
 from project3_cuda_path_tracer_2025_tpu.ops import fused
 from project3_cuda_path_tracer_2025_tpu.scene import load_scene, set_resolution
 
+PRIM_SCENES = ["cornell.json", "cornell_dof.json", "cornell_transmissive_sphere.json"]
+
 
 @pytest.fixture(scope="module")
-def cornell_tiny(scenes_dir):
-    return set_resolution(load_scene(str(scenes_dir / "cornell.json")), 20, 20)
+def cornell_tiny(scene_file):
+    return set_resolution(load_scene(str(scene_file("cornell.json"))), 20, 20)
+
+
+def _assert_films_match(a, b):
+    # Same RNG bits and identical termination; the kernel re-associates a
+    # few float ops (FMA contraction), so the tolerance is a few ulp.
+    np.testing.assert_allclose(a.image(), b.image(), atol=1e-5)
+    np.testing.assert_array_equal(a._alive_counts, b._alive_counts)
 
 
 def test_fused_matches_unfused(cornell_tiny):
+    """400 rays: two 256-ray blocks, the second one padded."""
     a = Renderer(cornell_tiny, RenderConfig(fused_bounce="off"))
     b = Renderer(cornell_tiny, RenderConfig(fused_bounce="on"))
     for _ in range(2):
         a.step()
         b.step()
-    # Same RNG streams and identical termination; the whole-iteration kernel
-    # re-associates one raygen add, so tolerance is ~1 ulp (observed 2.4e-7).
-    np.testing.assert_allclose(a.image(), b.image(), atol=1e-5)
-    np.testing.assert_array_equal(a._alive_counts, b._alive_counts)
+    _assert_films_match(a, b)
+
+
+@pytest.mark.parametrize("name", PRIM_SCENES[1:])
+def test_fused_matches_unfused_scenes(scene_file, name):
+    """Every other in-repo prim scene (DoF aperture, transmissive lobe) at
+    a pixel count that is not a multiple of the block size."""
+    s = set_resolution(load_scene(str(scene_file(name))), 17, 15)
+    s.state.trace_depth = 4
+    a = Renderer(s, RenderConfig(fused_bounce="off"))
+    b = Renderer(s, RenderConfig(fused_bounce="on"))
+    for _ in range(2):
+        a.step()
+        b.step()
+    _assert_films_match(a, b)
+
+
+@pytest.mark.parametrize("block, num_warps", [(128, 4), (512, 8)])
+def test_fused_block_size_invariant(scene_file, block, num_warps):
+    """The block size and warp count are tuning only: the per-depth alive
+    counts (reduced from per-block partials) are the same and the film
+    agrees to an ulp (the interpreter vectorizes each block size apart)."""
+    import jax
+    import jax.numpy as jnp
+
+    s = set_resolution(load_scene(str(scene_file("cornell.json"))), 20, 20)
+    s.state.trace_depth = 3
+    r = Renderer(s, RenderConfig(fused_bounce="off"))
+    args = (r._cam_state, r.film, jnp.int32(1), r._base_key)
+    ref_film, ref_alive = fused.fused_prim_iteration(
+        r.static, r.cfg, *args, interpret=True
+    )
+    r.film = r._new_film()
+    args = (r._cam_state, r.film, jnp.int32(1), r._base_key)
+    film, alive = fused.fused_prim_iteration(
+        r.static, r.cfg, *args, interpret=True, block=block,
+        num_warps=num_warps,
+    )
+    for x, y in zip(jax.device_get(film), jax.device_get(ref_film)):
+        np.testing.assert_allclose(x, y, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(alive), np.asarray(ref_alive))
 
 
 def test_fused_applicability_gates(cornell_tiny, repo_root):
@@ -44,123 +92,6 @@ def test_fused_applicability_gates(cornell_tiny, repo_root):
     assert not fused.fused_applicable(mesh_static, RenderConfig())
 
 
-def test_fused_mesh_matches_unfused(repo_root):
-    """The fused mesh bounce (prim intersect + mesh-hit merge + shade in one
-    Pallas program) must match the unfused MXU path."""
-    mesh = set_resolution(
-        load_scene(str(repo_root / "scenes" / "cornell_mesh_5k.json")), 16, 16
-    )
-    mesh.state.trace_depth = 3
-    a = Renderer(mesh, RenderConfig(mesh_intersector="mxu", fused_bounce="off"))
-    b = Renderer(mesh, RenderConfig(mesh_intersector="mxu", fused_bounce="on"))
-    for _ in range(2):
-        a.step()
-        b.step()
-    np.testing.assert_allclose(a.image(), b.image(), atol=1e-4)
-    np.testing.assert_array_equal(a._alive_counts, b._alive_counts)
-
-
-def test_fused_mesh_persistent_sort_invariant(repo_root):
-    """Persistent ray-coherence sorting (paths stay permuted across the
-    bounce; film scatter-adds by pixel) must not change any pixel: every op
-    downstream of the permutation is elementwise per ray."""
-    mesh = set_resolution(
-        load_scene(str(repo_root / "scenes" / "cornell_mesh_5k.json")), 12, 12
-    )
-    mesh.state.trace_depth = 3
-    base = RenderConfig(mesh_intersector="mxu", fused_bounce="on")
-    import dataclasses
-
-    a = Renderer(mesh, dataclasses.replace(base, ray_sorting="off"))
-    b = Renderer(mesh, dataclasses.replace(base, ray_sorting="on"))
-    c = Renderer(
-        mesh, dataclasses.replace(base, ray_sorting="on", ray_sort_every=2)
-    )
-    d = Renderer(
-        mesh,
-        dataclasses.replace(base, ray_sorting="on", ray_sort_mode="signature"),
-    )
-    for _ in range(2):
-        a.step()
-        b.step()
-        c.step()
-        d.step()
-    np.testing.assert_array_equal(a.image(), b.image())
-    np.testing.assert_array_equal(a.image(), c.image())
-    np.testing.assert_array_equal(a.image(), d.image())
-    np.testing.assert_array_equal(a._alive_counts, b._alive_counts)
-
-
-def test_fused_mesh_textured_matches_unfused(repo_root):
-    """Textured+bumped mesh scene: the fused path (texture/bump resolved in
-    the XLA surface stage, shade in the Pallas kernel) must match the
-    unfused megakernel bit-exactly."""
-    mesh = set_resolution(
-        load_scene(str(repo_root / "scenes" / "cornell_mesh_textured.json")),
-        12, 12,
-    )
-    mesh.state.trace_depth = 3
-    import dataclasses
-
-    base = RenderConfig(mesh_intersector="mxu", ray_sorting="off")
-    a = Renderer(mesh, dataclasses.replace(base, fused_bounce="off"))
-    b = Renderer(mesh, dataclasses.replace(base, fused_bounce="on"))
-    c = Renderer(
-        mesh, dataclasses.replace(base, fused_bounce="on", ray_sorting="on")
-    )
-    for _ in range(2):
-        a.step()
-        b.step()
-        c.step()
-    # Texture/bump math runs in different fusion contexts (inline in shade
-    # vs the XLA surface stage), so FMA contraction may differ by ~1 ulp
-    # (observed 7e-8 on 4/432 elements) -- same tolerance class as the
-    # fused prim kernel's raygen re-association.
-    np.testing.assert_allclose(a.image(), b.image(), atol=1e-6)
-    # Sorting is a pure permutation of the SAME graph: bit-exact.
-    np.testing.assert_array_equal(b.image(), c.image())
-    np.testing.assert_array_equal(a._alive_counts, b._alive_counts)
-
-
-def test_fused_gate_prim_textured(repo_root, tmp_path):
-    """A textured material on an analytic PRIM must gate the fused mesh
-    path off (prim texture lookups can't run inside the Pallas kernel)."""
-    import json
-
-    from project3_cuda_path_tracer_2025_tpu.ops import fused
-    from project3_cuda_path_tracer_2025_tpu.scene import build_device_scene
-
-    scene_dir = repo_root / "scenes"
-    src = json.load(open(scene_dir / "cornell_mesh_textured.json"))
-    # Asset paths are scene-relative; rebase them for the tmp copy.
-    import os
-
-    for m in src["Materials"].values():
-        for k in ("TEXTURE", "BUMP_MAP"):
-            if k in m:
-                m[k] = os.path.normpath(str(scene_dir / m[k]))
-    for g in src["Objects"]:
-        if "PATH" in g:
-            g["PATH"] = os.path.normpath(str(scene_dir / g["PATH"]))
-    # Move the texture onto a wall material (a cube prim uses it).
-    src["Materials"]["diffuse_red"]["TEXTURE"] = src["Materials"]["mesh_tex"][
-        "TEXTURE"
-    ]
-    p = tmp_path / "prim_tex.json"
-    p.write_text(json.dumps(src))
-    scene = set_resolution(load_scene(str(p)), 8, 8)
-    _, static = build_device_scene(scene)
-    assert static.prim_textured
-    assert not fused.fused_mesh_applicable(static, RenderConfig())
-    # The shipped textured mesh scene (textures on the mesh only) stays on.
-    s2 = set_resolution(
-        load_scene(str(repo_root / "scenes" / "cornell_mesh_textured.json")), 8, 8
-    )
-    _, st2 = build_device_scene(s2)
-    assert not st2.prim_textured
-    assert fused.fused_mesh_applicable(st2, RenderConfig())
-
-
 def test_fused_auto_off_on_cpu(cornell_tiny):
     """auto must not select the (interpreted, slow) kernel on CPU."""
     import time
@@ -170,147 +101,16 @@ def test_fused_auto_off_on_cpu(cornell_tiny):
     r.step()
     elapsed = time.perf_counter() - t0
     assert np.isfinite(r.image()).all()
-    # The interpreted fused kernel at 400 rays takes minutes even warm; the
-    # jnp path (compile included) stays far under 30s even on a loaded
-    # single-core box (10s flaked under full-suite load).  This catches
-    # "auto" accidentally selecting Pallas-interpret on CPU.
+    # The interpreted kernel compiles for tens of seconds; the jnp path
+    # (compile included) stays far under 30s even on a loaded box.  This
+    # catches "auto" accidentally selecting Pallas-interpret on CPU.
     assert elapsed < 30.0, f"auto path took {elapsed:.1f}s on CPU - interpreted kernel?"
-
-
-def test_fused_prim_textured_matches_unfused(repo_root):
-    """Textured-PRIM scene (reference quirk: prims have uv=(0,0), so the
-    texture shades flat, src/pathtrace.cu:115,549-553): the precomputed-
-    surface fused path (intersect + texture resolve in XLA, BSDF scatter in
-    the Pallas kernel) must match the unfused megakernel."""
-    from project3_cuda_path_tracer_2025_tpu.ops import fused as fused_mod
-
-    mesh = set_resolution(
-        load_scene(str(repo_root / "scenes" / "cornell_prim_textured.json")),
-        12, 12,
-    )
-    mesh.state.trace_depth = 3
-    import dataclasses
-
-    base = RenderConfig(mesh_intersector="mxu", ray_sorting="off")
-    assert fused_mod.fused_tex_applicable(
-        Renderer(mesh, base).static, dataclasses.replace(base, fused_bounce="on")
-    )
-    a = Renderer(mesh, dataclasses.replace(base, fused_bounce="off"))
-    b = Renderer(mesh, dataclasses.replace(base, fused_bounce="on"))
-    for _ in range(2):
-        a.step()
-        b.step()
-    np.testing.assert_allclose(a.image(), b.image(), atol=1e-6)
-    assert np.isfinite(b.image()).all() and b.image().mean() > 0.001
-
-
-def test_fused_tex_rolled_loop(repo_root):
-    """Regression: fused tex path + unroll_bounces=False (rolled fori_loop)
-    traced ``d > 0`` on the loop tracer and crashed at trace time.  With
-    the liveness sort inactive (no tiers -- the default) the resort flag
-    must short-circuit to a Python bool and the rolled loop must match the
-    unrolled one."""
-    import dataclasses
-
-    mesh = set_resolution(
-        load_scene(str(repo_root / "scenes" / "cornell_prim_textured.json")),
-        12, 12,
-    )
-    mesh.state.trace_depth = 3
-    base = RenderConfig(
-        mesh_intersector="mxu", ray_sorting="off", fused_bounce="on"
-    )
-    a = Renderer(mesh, base)
-    b = Renderer(mesh, dataclasses.replace(base, unroll_bounces=False))
-    a.step()
-    b.step()
-    np.testing.assert_allclose(a.image(), b.image(), atol=1e-6)
-
-
-def test_render_binned_traversal_matches_default(repo_root):
-    """Full renders through mxu_traversal='binned' (fused mesh bounce) must
-    be bit-identical to the default traversal -- the per-ray candidate
-    contract holds at the integrator level, not just per intersect."""
-    import dataclasses
-
-    mesh = set_resolution(
-        load_scene(str(repo_root / "scenes" / "cornell_mesh_5k.json")), 16, 16
-    )
-    mesh.state.trace_depth = 3
-    base = RenderConfig(
-        mesh_intersector="mxu", fused_bounce="on", ray_sorting="on"
-    )
-    a = Renderer(mesh, base)
-    b = Renderer(mesh, dataclasses.replace(base, mxu_traversal="binned"))
-    # Binned COMPOSED with bounce-prefix tiers: the tier slice hands the
-    # intersector a prefix while the pair budget stays anchored to the
-    # full ray count (fused.py budget_anchor_n) -- still bit-identical.
-    c = Renderer(
-        mesh,
-        dataclasses.replace(
-            base, mxu_traversal="binned", bounce_prefix_tiers=(4, 2)
-        ),
-    )
-    for _ in range(2):
-        a.step()
-        b.step()
-        c.step()
-    np.testing.assert_array_equal(a.image(), b.image())
-    np.testing.assert_array_equal(a._alive_counts, b._alive_counts)
-    np.testing.assert_array_equal(a.image(), c.image())
-    np.testing.assert_array_equal(a._alive_counts, c._alive_counts)
-
-
-def test_render_bounce_prefix_tiers_matches_default(repo_root):
-    """Prefix-tiered fused mesh bounce (every stage over the alive-prefix
-    tier) must produce bit-identical images and alive counts: all stages
-    are elementwise per ray with pixel-keyed RNG, so only dead-row layout
-    may differ -- invisible to the by-pixel film scatter."""
-    import dataclasses
-
-    mesh = set_resolution(
-        load_scene(str(repo_root / "scenes" / "cornell_mesh_5k.json")), 32, 32
-    )
-    # Depth 6 so the alive population decays INTO the n/2 tier: bounces 4-5
-    # run the sliced body (probed via the branch debug hook when built).
-    mesh.state.trace_depth = 6
-    base = RenderConfig(
-        mesh_intersector="mxu", fused_bounce="on", ray_sorting="on"
-    )
-    a = Renderer(mesh, base)
-    b = Renderer(mesh, dataclasses.replace(base, bounce_prefix_tiers=(4, 2)))
-    for _ in range(2):
-        a.step()
-        b.step()
-    np.testing.assert_array_equal(a.image(), b.image())
-    np.testing.assert_array_equal(a._alive_counts, b._alive_counts)
-
-
-def test_render_skip_first_bounce_sort_matches_default(repo_root):
-    """ray_sort_first_bounce=False (camera rays stay in pixel order for
-    bounce 0) must be bit-identical: the coherence sort is a pure
-    permutation around order-invariant stages."""
-    import dataclasses
-
-    mesh = set_resolution(
-        load_scene(str(repo_root / "scenes" / "cornell_mesh_5k.json")), 16, 16
-    )
-    mesh.state.trace_depth = 3
-    base = RenderConfig(
-        mesh_intersector="mxu", fused_bounce="on", ray_sorting="on"
-    )
-    a = Renderer(mesh, base)
-    b = Renderer(mesh, dataclasses.replace(base, ray_sort_first_bounce=False))
-    a.step()
-    b.step()
-    np.testing.assert_array_equal(a.image(), b.image())
-    np.testing.assert_array_equal(a._alive_counts, b._alive_counts)
 
 
 def test_tier_sizes_unit():
     """Tier arithmetic: divisors round UP to 256-row units, degenerate and
     full-size tiers are dropped, duplicates collapse."""
-    from project3_cuda_path_tracer_2025_tpu.ops.fused import tier_sizes
+    from project3_cuda_path_tracer_2025_tpu.models.wavefront import tier_sizes
 
     assert tier_sizes(1024, (4, 2)) == [256, 512]
     assert tier_sizes(1024, (2, 2, 4)) == [256, 512]
@@ -321,65 +121,14 @@ def test_tier_sizes_unit():
     assert tier_sizes(640000, (8, 4, 2)) == [80128, 160000, 320000]
 
 
-def test_render_tex_prefix_tiers_matches_default(repo_root):
-    """Prefix-tiered textured-PRIM fused bounce (liveness-packing sort +
-    every stage over the alive-prefix tier) must be bit-identical to the
-    unsorted fused path: stages are elementwise per ray with pixel-keyed
-    RNG, so only dead-row layout differs -- erased by the by-pixel film
-    scatter."""
-    import dataclasses
-
-    from project3_cuda_path_tracer_2025_tpu.ops import fused as fused_mod
-
-    mesh = set_resolution(
-        load_scene(str(repo_root / "scenes" / "cornell_prim_textured.json")),
-        32, 32,
-    )
-    # Depth 6 so the alive population decays into the n/2 and n/4 tiers.
-    # mxu: the TPU production combo (outer liveness sort composing with the
-    # intersector's internal coherence sort).
-    mesh.state.trace_depth = 6
-    base = RenderConfig(
-        fused_bounce="on", ray_sorting="on", mesh_intersector="mxu"
-    )
-    tiered = dataclasses.replace(base, bounce_prefix_tiers=(4, 2))
-    assert fused_mod.tex_sort_active(tiered)
-    assert not fused_mod.tex_sort_active(base)  # tiers gate the sort
-    a = Renderer(mesh, base)
-    b = Renderer(mesh, tiered)
+@pytest.mark.gpu
+def test_fused_compiled_matches_megakernel(gpu_device, scene_file):
+    """The compiled Triton kernel on the card vs the XLA megakernel (its
+    bounce loop rolled: the same arithmetic at a fraction of the compile)."""
+    s = set_resolution(load_scene(str(scene_file("cornell.json"))), 64, 48)
+    a = Renderer(s, RenderConfig(fused_bounce="off", unroll_bounces=False))
+    b = Renderer(s, RenderConfig(fused_bounce="on"))
     for _ in range(2):
         a.step()
         b.step()
-    np.testing.assert_array_equal(a.image(), b.image())
-    np.testing.assert_array_equal(a._alive_counts, b._alive_counts)
-
-
-def test_render_pixel_state_order_matches_sorted(repo_root):
-    """mesh_state_order='pixel' (state stays in pixel order; the
-    intersector sorts only its ray-feature rows by the carried key and
-    scatters results back) must render bit-identically to the persistent
-    sorted state -- permutation invisibility at the integrator level.
-    Covers the carry path (in-kernel key emission feeds the intersector's
-    internal argsort) across multiple steps and a tiered sorted baseline."""
-    import dataclasses
-
-    mesh = set_resolution(
-        load_scene(str(repo_root / "scenes" / "cornell_mesh_5k.json")), 16, 16
-    )
-    mesh.state.trace_depth = 3
-    base = RenderConfig(
-        mesh_intersector="mxu", fused_bounce="on", ray_sorting="on"
-    )
-    a = Renderer(mesh, base)
-    b = Renderer(mesh, dataclasses.replace(base, mesh_state_order="pixel"))
-    c = Renderer(
-        mesh,
-        dataclasses.replace(base, bounce_prefix_tiers=(4, 2)),
-    )
-    for _ in range(2):
-        a.step()
-        b.step()
-        c.step()
-    np.testing.assert_array_equal(a.image(), b.image())
-    np.testing.assert_array_equal(a._alive_counts, b._alive_counts)
-    np.testing.assert_array_equal(a.image(), c.image())
+    _assert_films_match(a, b)

@@ -17,7 +17,7 @@ golden can never silently go uncompared.
 Tolerance: the renders are deterministic on a fixed jax/XLA version; the
 small allclose tolerance only absorbs cross-version fusion/rounding
 differences.  Real regressions (the reference's own epsilon bug class,
-``/root/reference/README.md:377-394``) move many pixels by large amounts.
+reference ``README.md:377-394``) move many pixels by large amounts.
 """
 
 import os

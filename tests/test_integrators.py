@@ -15,8 +15,8 @@ from project3_cuda_path_tracer_2025_tpu.scene import load_scene, set_resolution
 
 
 @pytest.fixture(scope="module")
-def cornell_small(scenes_dir):
-    return set_resolution(load_scene(str(scenes_dir / "cornell.json")), 48, 48)
+def cornell_small(scene_file):
+    return set_resolution(load_scene(str(scene_file("cornell.json"))), 48, 48)
 
 
 def _film(scene, cfg, spp=2, seed=0):
@@ -112,8 +112,8 @@ def test_orbit_resets_accumulation(cornell_small):
     assert r.image().sum() == 0.0
 
 
-def test_glass_scene_renders(scenes_dir):
-    scene = set_resolution(load_scene(str(scenes_dir / "cornell_glass_test.json")), 32, 32)
+def test_glass_scene_renders(scene_file):
+    scene = set_resolution(load_scene(str(scene_file("cornell_glass_test.json"))), 32, 32)
     r = Renderer(scene, RenderConfig())
     for _ in range(4):
         r.step()
@@ -122,9 +122,9 @@ def test_glass_scene_renders(scenes_dir):
     assert img.mean() > 0.01
 
 
-def test_microfacet_scene_renders(scenes_dir):
+def test_microfacet_scene_renders(scene_file):
     scene = set_resolution(
-        load_scene(str(scenes_dir / "cornell_microfacet_test.json")), 32, 32
+        load_scene(str(scene_file("cornell_microfacet_test.json"))), 32, 32
     )
     r = Renderer(scene, RenderConfig())
     for _ in range(4):

@@ -33,8 +33,8 @@ def test_frame_to_ansi_clamps():
     assert "38;2;255;255;255" in out and "256" not in out
 
 
-def test_shell_key_dispatch(scenes_dir, tmp_path):
-    scene = set_resolution(load_scene(str(scenes_dir / "cornell.json")), 12, 12)
+def test_shell_key_dispatch(scene_file, tmp_path):
+    scene = set_resolution(load_scene(str(scene_file("cornell.json"))), 12, 12)
     scene.state.trace_depth = 2
     r = Renderer(scene, RenderConfig())
     r.step()
@@ -55,10 +55,10 @@ def test_shell_key_dispatch(scenes_dir, tmp_path):
     assert "iter" in shell.status_line()
 
 
-def test_preview_image_matches_full_fetch(scenes_dir):
+def test_preview_image_matches_full_fetch(scene_file):
     """Device-side preview downsample == host downsample of the full image
     on the same nearest-neighbor grid (divisible sizes -> exact)."""
-    scene = set_resolution(load_scene(str(scenes_dir / "cornell.json")), 16, 16)
+    scene = set_resolution(load_scene(str(scene_file("cornell.json"))), 16, 16)
     scene.state.trace_depth = 2
     r = Renderer(scene, RenderConfig())
     r.step()
@@ -70,10 +70,10 @@ def test_preview_image_matches_full_fetch(scenes_dir):
     np.testing.assert_allclose(small, full[ys][:, xs], rtol=1e-6)
 
 
-def test_step_nosync_pipelines(scenes_dir):
+def test_step_nosync_pipelines(scene_file):
     """step(sync=False) enqueues without a host sync and the film still
     accumulates correctly once fetched."""
-    scene = set_resolution(load_scene(str(scenes_dir / "cornell.json")), 12, 12)
+    scene = set_resolution(load_scene(str(scene_file("cornell.json"))), 12, 12)
     scene.state.trace_depth = 2
     a = Renderer(scene, RenderConfig())
     b = Renderer(scene, RenderConfig())

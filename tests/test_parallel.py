@@ -7,7 +7,7 @@ import jax
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
-def test_sharded_iteration_runs_and_matches(scenes_dir):
+def test_sharded_iteration_runs_and_matches(scene_file):
     import jax.numpy as jnp
 
     from project3_cuda_path_tracer_2025_tpu.config import RenderConfig
@@ -15,13 +15,13 @@ def test_sharded_iteration_runs_and_matches(scenes_dir):
     from project3_cuda_path_tracer_2025_tpu.parallel.mesh import dryrun
     from project3_cuda_path_tracer_2025_tpu.scene import load_scene, set_resolution
 
-    film, alive, mesh = dryrun(8, str(scenes_dir / "cornell.json"), 32, 32)
+    film, alive, mesh = dryrun(8, str(scene_file("cornell.json")), 32, 32)
     assert mesh.shape == {"rays": 8}
     counts = np.asarray(alive)
     assert counts[0] > 0 and counts[-1] == 0
 
     # Sharded result == single-device result (same RNG streams).
-    s = set_resolution(load_scene(str(scenes_dir / "cornell.json")), 32, 32)
+    s = set_resolution(load_scene(str(scene_file("cornell.json"))), 32, 32)
     r = Renderer(s, RenderConfig())
     r.step()
     single = np.stack(
@@ -35,19 +35,19 @@ def test_sharded_iteration_runs_and_matches(scenes_dir):
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
 def test_sharded_mesh_mxu_matches(repo_root):
-    """Mesh scene through the Pallas MXU intersector under ray-axis sharding
-    == single-device (bit-level, same RNG streams)."""
+    """Mesh scene through the threaded-BVH walk under ray-axis sharding
+    (XLA's automatic partitioner) == single-device (same RNG streams)."""
     from project3_cuda_path_tracer_2025_tpu.config import RenderConfig
     from project3_cuda_path_tracer_2025_tpu.models import Renderer
     from project3_cuda_path_tracer_2025_tpu.parallel.mesh import dryrun
     from project3_cuda_path_tracer_2025_tpu.scene import load_scene, set_resolution
 
     scene_path = str(repo_root / "scenes" / "cornell_mesh_5k.json")
-    film, alive, mesh = dryrun(8, scene_path, 16, 16, mesh_intersector="mxu")
+    film, alive, mesh = dryrun(8, scene_path, 16, 16, mesh_intersector="threaded")
     assert np.asarray(alive)[0] > 0
 
     s = set_resolution(load_scene(scene_path), 16, 16)
-    r = Renderer(s, RenderConfig(mesh_intersector="mxu"))
+    r = Renderer(s, RenderConfig(mesh_intersector="threaded"))
     r.step()
     single = np.stack(
         [np.asarray(r.film.x), np.asarray(r.film.y), np.asarray(r.film.z)], -1
@@ -59,7 +59,7 @@ def test_sharded_mesh_mxu_matches(repo_root):
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
-def test_sharded_wavefront_matches(scenes_dir):
+def test_sharded_wavefront_matches(scene_file):
     """Wavefront integrator (compaction permutations + scatter-add film)
     under sharding == single-device wavefront."""
     from project3_cuda_path_tracer_2025_tpu.config import RenderConfig
@@ -68,9 +68,9 @@ def test_sharded_wavefront_matches(scenes_dir):
     from project3_cuda_path_tracer_2025_tpu.scene import load_scene, set_resolution
 
     film, alive, mesh = dryrun(
-        8, str(scenes_dir / "cornell.json"), 16, 16, integrator="wavefront"
+        8, str(scene_file("cornell.json")), 16, 16, integrator="wavefront"
     )
-    s = set_resolution(load_scene(str(scenes_dir / "cornell.json")), 16, 16)
+    s = set_resolution(load_scene(str(scene_file("cornell.json"))), 16, 16)
     r = Renderer(s, RenderConfig(integrator="wavefront"))
     r.step()
     single = np.stack(
@@ -83,17 +83,17 @@ def test_sharded_wavefront_matches(scenes_dir):
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
-def test_film_is_actually_sharded(scenes_dir):
+def test_film_is_actually_sharded(scene_file):
     from project3_cuda_path_tracer_2025_tpu.parallel.mesh import dryrun
 
-    film, _, mesh = dryrun(8, str(scenes_dir / "cornell.json"), 32, 32)
+    film, _, mesh = dryrun(8, str(scene_file("cornell.json")), 32, 32)
     sharding = film.x.sharding
     # one distinct shard per device along the ray axis
     assert len(sharding.device_set) == 8
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
-def test_shardmap_pixel_parallel_bitexact(scenes_dir):
+def test_shardmap_pixel_parallel_bitexact(scene_file):
     """Production multi-chip path (shard_map over the ray axis) ==
     single-chip, bit for bit: every RNG draw evaluates the global
     (pixel, depth) stream at local pixel ids (prng.uniforms_at)."""
@@ -103,7 +103,7 @@ def test_shardmap_pixel_parallel_bitexact(scenes_dir):
     from project3_cuda_path_tracer_2025_tpu.models import Renderer
     from project3_cuda_path_tracer_2025_tpu.scene import load_scene, set_resolution
 
-    s = set_resolution(load_scene(str(scenes_dir / "cornell.json")), 32, 32)
+    s = set_resolution(load_scene(str(scene_file("cornell.json"))), 32, 32)
     a = Renderer(s, RenderConfig())
     b = Renderer(s, RenderConfig(devices=8, parallel_mode="pixel"))
     for _ in range(2):
@@ -115,7 +115,7 @@ def test_shardmap_pixel_parallel_bitexact(scenes_dir):
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
-def test_shardmap_sample_parallel(scenes_dir):
+def test_shardmap_sample_parallel(scene_file):
     """Sample-parallel mode: one 8-chip step == 8 single-chip iterations
     (same iteration keys; film rows summed at save)."""
     import numpy as np
@@ -124,7 +124,7 @@ def test_shardmap_sample_parallel(scenes_dir):
     from project3_cuda_path_tracer_2025_tpu.models import Renderer
     from project3_cuda_path_tracer_2025_tpu.scene import load_scene, set_resolution
 
-    s = set_resolution(load_scene(str(scenes_dir / "cornell.json")), 16, 16)
+    s = set_resolution(load_scene(str(scene_file("cornell.json"))), 16, 16)
     a = Renderer(s, RenderConfig())
     for _ in range(8):
         a.step()
@@ -135,71 +135,40 @@ def test_shardmap_sample_parallel(scenes_dir):
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
-def test_shardmap_fused_kernels_sharded(scenes_dir, repo_root):
-    """The PRODUCTION Pallas kernels (fused prim bounce; MXU intersect +
-    fused mesh bounce with persistent coherence sort) run per-chip inside
-    shard_map -- interpret mode on the CPU mesh.  Tolerance 1e-6: interpret
-    mode re-fuses FMA contraction differently per program shape (same class
-    as the fused-vs-unfused single-chip tests)."""
+def test_shardmap_fused_kernels_sharded(scene_file, repo_root):
+    """With the whole-iteration prim kernel forced on, the multi-device
+    step still runs the XLA megakernel per device inside shard_map (the
+    kernel is a single-device specialization): prim and mesh scenes match
+    the single-device megakernel bit for bit."""
     import numpy as np
 
     from project3_cuda_path_tracer_2025_tpu.config import RenderConfig
     from project3_cuda_path_tracer_2025_tpu.models import Renderer
     from project3_cuda_path_tracer_2025_tpu.scene import load_scene, set_resolution
 
-    s = set_resolution(load_scene(str(scenes_dir / "cornell.json")), 16, 16)
-    a = Renderer(s, RenderConfig(fused_bounce="on"))
+    s = set_resolution(load_scene(str(scene_file("cornell.json"))), 16, 16)
+    a = Renderer(s, RenderConfig(fused_bounce="off"))
     b = Renderer(s, RenderConfig(fused_bounce="on", devices=8))
     for _ in range(2):
         a.step()
         b.step()
-    np.testing.assert_allclose(a.image(), b.image(), atol=1e-6)
+    np.testing.assert_array_equal(a.image(), b.image())
 
     m = set_resolution(load_scene(str(repo_root / "scenes" / "cornell_mesh_5k.json")), 16, 16)
     m.state.trace_depth = 3
-    kw = dict(mesh_intersector="mxu", fused_bounce="on", ray_sorting="on")
-    c = Renderer(m, RenderConfig(**kw))
-    d = Renderer(m, RenderConfig(devices=8, **kw))
+    c = Renderer(m, RenderConfig())
+    d = Renderer(m, RenderConfig(devices=8))
     c.step()
     d.step()
-    np.testing.assert_allclose(c.image(), d.image(), atol=1e-6)
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
-def test_shardmap_tex_tiers_sharded(repo_root):
-    """Liveness-packed prefix-tiered textured-prim fused bounce under
-    shard_map (per-chip sort + tier cond + by-pixel film scatter with a
-    local base) == single chip."""
-    import numpy as np
-
-    from project3_cuda_path_tracer_2025_tpu.config import RenderConfig
-    from project3_cuda_path_tracer_2025_tpu.models import Renderer
-    from project3_cuda_path_tracer_2025_tpu.scene import load_scene, set_resolution
-
-    # 48x48 = 288 rays/chip: the n/2 tier rounds to 256 rows (< 288), so the
-    # tier cond actually engages inside each shard program.
-    s = set_resolution(
-        load_scene(str(repo_root / "scenes" / "cornell_prim_textured.json")),
-        48, 48,
-    )
-    s.state.trace_depth = 4
-    kw = dict(
-        fused_bounce="on", ray_sorting="on", bounce_prefix_tiers=(4, 2)
-    )
-    a = Renderer(s, RenderConfig(**kw))
-    b = Renderer(s, RenderConfig(devices=8, **kw))
-    a.step()
-    b.step()
-    np.testing.assert_allclose(a.image(), b.image(), atol=1e-6)
+    np.testing.assert_array_equal(c.image(), d.image())
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
 @pytest.mark.parametrize("traversal", ["streamed", "binned"])
 def test_shardmap_heavy_traversals_sharded(repo_root, traversal):
-    """The production HEAVY-MESH traversals (streamed global front-to-back
-    walk; packet-binned tile-major) run per-chip inside shard_map and match
-    the single-device image -- the sharding proof VERDICT round-3 #10 asked
-    for beyond the planned-mode 5k case."""
+    """Mesh walks under shard_map match the single-device image: the
+    threaded BVH ("streamed") and the brute-force oracle ("binned" -- the
+    per-device program with no acceleration structure)."""
     import numpy as np
 
     from project3_cuda_path_tracer_2025_tpu.config import RenderConfig
@@ -211,8 +180,7 @@ def test_shardmap_heavy_traversals_sharded(repo_root, traversal):
     )
     m.state.trace_depth = 2
     kw = dict(
-        mesh_intersector="mxu", fused_bounce="on", ray_sorting="on",
-        mxu_traversal=traversal,
+        mesh_intersector="threaded" if traversal == "streamed" else "brute"
     )
     a = Renderer(m, RenderConfig(**kw))
     b = Renderer(m, RenderConfig(devices=8, **kw))
@@ -222,7 +190,7 @@ def test_shardmap_heavy_traversals_sharded(repo_root, traversal):
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
-def test_shardmap_wavefront_bitexact(scenes_dir):
+def test_shardmap_wavefront_bitexact(scene_file):
     """Wavefront (compaction permutations + scatter-add film with local
     pixel bases) under shard_map == single chip, bitwise."""
     import numpy as np
@@ -231,7 +199,7 @@ def test_shardmap_wavefront_bitexact(scenes_dir):
     from project3_cuda_path_tracer_2025_tpu.models import Renderer
     from project3_cuda_path_tracer_2025_tpu.scene import load_scene, set_resolution
 
-    s = set_resolution(load_scene(str(scenes_dir / "cornell.json")), 16, 16)
+    s = set_resolution(load_scene(str(scene_file("cornell.json"))), 16, 16)
     a = Renderer(s, RenderConfig(integrator="wavefront"))
     b = Renderer(s, RenderConfig(integrator="wavefront", devices=8))
     a.step()
@@ -240,7 +208,7 @@ def test_shardmap_wavefront_bitexact(scenes_dir):
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
-def test_shardmap_checkpoint_roundtrip(scenes_dir, tmp_path):
+def test_shardmap_checkpoint_roundtrip(scene_file, tmp_path):
     """Checkpoints are flat [N] films; they restore into any device layout
     (single -> sample-parallel here) without changing the image."""
     import numpy as np
@@ -249,7 +217,7 @@ def test_shardmap_checkpoint_roundtrip(scenes_dir, tmp_path):
     from project3_cuda_path_tracer_2025_tpu.models import Renderer
     from project3_cuda_path_tracer_2025_tpu.scene import load_scene, set_resolution
 
-    s = set_resolution(load_scene(str(scenes_dir / "cornell.json")), 16, 16)
+    s = set_resolution(load_scene(str(scene_file("cornell.json"))), 16, 16)
     a = Renderer(s, RenderConfig())
     a.step()
     ck = str(tmp_path / "c.npz")

@@ -9,8 +9,8 @@ from project3_cuda_path_tracer_2025_tpu.scene import load_scene, set_resolution
 
 
 @pytest.fixture(scope="module")
-def cornell_tiny(scenes_dir):
-    return set_resolution(load_scene(str(scenes_dir / "cornell.json")), 24, 24)
+def cornell_tiny(scene_file):
+    return set_resolution(load_scene(str(scene_file("cornell.json"))), 24, 24)
 
 
 def test_fake_shader_runs(cornell_tiny):

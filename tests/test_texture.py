@@ -120,10 +120,8 @@ def test_multiple_textures_padded_stack():
         np.testing.assert_allclose(np.asarray(out.x), expect[:, 0], atol=1e-5)
 
 
-def test_wahoo_bmp_loads(reference_root):
-    path = reference_root / "scenes/textures/wahoo.bmp"
-    if not path.exists():
-        pytest.skip("wahoo.bmp not present")
+def test_wahoo_bmp_loads(scene_file):
+    path = scene_file("textures/wahoo.bmp")
     tex = load_texture(str(path))
     assert tex.channels == 4
     assert tex.width > 0 and tex.height > 0
